@@ -13,14 +13,16 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               exactly: pack/unpack on random words with bw 0 and 32 edge
               blocks, bm25_blocks with and without partials, midgrid at
               every pow2 bucket up to 4096 blocks for k in {1, 10, 32} and
-              128 query rows;
+              128 query rows, bm25_blocks_compact at S in {1, 37, 4099}
+              with bw-0/bw-32 blocks and the rows array's last block;
 4. slice    — the main path through ``repro_torch.launch.serve`` with the
               full ``lucene_envelope`` CONFIG over a corpus with
-              ClueWeb09b's law scaled to ``--docs``: index, refresh, serve
-              ``--requests`` queries (32 slots, 4 terms, k=10), index
-              more, refresh, serve, delete 8 + update 4 docs, refresh,
-              serve. Kernel launch counts are zeroed just before and read
-              just after; every kernel of the path must have launched;
+              ClueWeb09b's law scaled to half of ``--docs``: index,
+              refresh, serve ``--requests`` queries (32 slots, 4 terms,
+              k=10), index more, refresh, serve, delete 8 + update 4
+              docs, refresh, serve. Kernel launch counts are zeroed just
+              before and read just after; every kernel of the path must
+              have launched;
 5. checks   — pruned == exhaustive bit for bit on the first 32 queries on
               the card, in the tombstone-free and the tombstoned snapshot,
               every pruned id carrying its true score (ids may differ only
@@ -30,14 +32,36 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               batches under ``torch.profiler`` (device-side events only),
               top kernels, and the host functions with the most own time
               under ``cProfile``;
-7. timing   — each kernel on the very inputs the slice gave it, at every
+7. durable  — the durable path at the same width and depth: index every
+              batch into an ``FSDirectory`` on the local disk with the
+              WAL, apply the slice's 8 deletes + 4 updates, ``commit()``;
+              recover with ``open_searcher(..., ReaderCache(compact=
+              True))`` and serve ``--requests`` queries through the
+              compact layout; hold every batch against a dense-layout
+              searcher over the same recovered segments and pruned
+              against exhaustive; then index one more batch with the WAL
+              and no commit, drop that indexer, reopen the directory and
+              check that the WAL replays the acked docs and a query batch
+              returns what it returned before the drop. Launch counts are
+              zeroed before and read after the indexing + recovery +
+              serving run and the WAL run (not around the comparisons);
+8. timing   — each kernel on the very inputs the paths gave it, at every
               leading size (blocks) it was launched with: held exactly
-              against its plain version once more, then its median time
-              over 21 launches, its plain version's time and its bound
-              (the bytes its data needs at 3.35 TB/s vs its f32 operations
-              at 67 TFLOP/s, the H100 SXM peaks at a 700 W limit; integer
-              bit operations are not counted — the table of peaks has no
-              rate for them), each averaged over the path's launches.
+              against its plain version once more, then its median device
+              time over 21 launches queued behind a spin kernel (the
+              host's launch time hidden; L2 flushed before each), its
+              plain version's time with the host's launch time included,
+              and its bound (the bytes its data needs at 3.35 TB/s vs its
+              f32 operations at 67 TFLOP/s, the H100 SXM peaks at a 700 W
+              limit; integer bit operations are not counted — the table
+              of peaks has no rate for them), each averaged over the
+              path's launches.
+
+The durable path runs at ``--docs`` (2^20 by default) and the in-memory
+slice at half of it: at 2^20 docs each, the two paths took 726.7-864.8 s
+together and the script 835.3-1002.9 s of its 1200 s limit on an NVIDIA
+H100 80GB HBM3 at a 700.00 W power limit, and only the earlier path's
+depth may be cut.
 
 Prints the kernels as one JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Details (ptxas report, every timing,
@@ -49,6 +73,7 @@ from __future__ import annotations
 import argparse
 import cProfile
 import json
+import os
 import pstats
 import sys
 import time
@@ -77,6 +102,53 @@ def _median_ms(fn, n: int = 21, warm: int = 2) -> float:
         b.record()
     torch.cuda.synchronize()
     return float(sorted(a.elapsed_time(b) for a, b in ev)[n // 2])
+
+
+_SPIN: dict = {}
+
+
+def _device_ms(fn, n: int = 21, warm: int = 2) -> float:
+    """Median device time of one call of ``fn`` (a kernel's wrapper), each
+    call finding the 50 MB L2 cold (a 128 MB buffer is written before
+    it, outside its events). The calls queue behind a spin kernel
+    (``torch.cuda._sleep``) that keeps the card busy until the host has
+    queued all n, so each pair of CUDA events brackets the device work of
+    its call alone, not the host's launch time. If the spin ended before
+    the last call was queued, the host set the pace: the spin is made 4x
+    longer and the calls run again."""
+    import torch
+    if not _SPIN:
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.cuda._sleep(1 << 24)
+        b.record()
+        torch.cuda.synchronize()
+        _SPIN["cycles_per_ms"] = (1 << 24) / a.elapsed_time(b)
+        _SPIN["flush"] = torch.empty(32 << 20, dtype=torch.float32,
+                                     device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(warm):
+        _SPIN["flush"].zero_()
+        fn()
+    spin_ms = 2 * n * (time.perf_counter() - t0) * 1e3 / warm + 1
+    torch.cuda.synchronize()
+    for _ in range(4):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(int(spin_ms * _SPIN["cycles_per_ms"]))
+        spun.record()
+        for a, b in ev:
+            _SPIN["flush"].zero_()
+            a.record()
+            fn()
+            b.record()
+        starved = spun.query()
+        torch.cuda.synchronize()
+        if not starved:
+            return float(sorted(a.elapsed_time(b) for a, b in ev)[n // 2])
+        spin_ms *= 4
+    raise AssertionError("the host never queued the calls ahead of the card")
 
 
 def _max_abs_err(got, want) -> float:
@@ -170,6 +242,42 @@ def phase_parity(dev) -> dict:
             skipped += int(got[3].sum())
     assert skipped > 0, "the midgrid carry never skipped a block"
     err["bm25_blocks_midgrid"] = e
+
+    # compact rows of 4099 random blocks (bw 0 and 32 among them); the
+    # selections include block 0 (bw 0), block 1 (bw 32) and the last
+    # block, whose planes end right before the 32 zero tail rows
+    nb = 4099
+    rows, coffs, bws = [], [], []
+    for lo in (0, 1):
+        vals = rng.integers(0, 2 ** 32, (nb, 128), dtype=np.uint64)
+        vals >>= rng.integers(0, 33, (nb, 1)).astype(np.uint64)
+        vals = vals.astype(np.uint32)
+        vals[0], vals[1], vals[-1] = 0, 0xFFFFFFFF, 0x80000000 >> lo
+        packed, bw = pref.pack_ref(torch.from_numpy(vals.view(
+            np.int32)).to(dev))
+        rows.append(torch.cat([pref.compact_planes(packed, bw),
+                               torch.zeros((32, 4), dtype=torch.int32,
+                                           device=dev)]))
+        coffs.append((torch.cumsum(bw, 0) - bw).to(torch.int32))
+        bws.append(bw)
+    e = 0.0
+    for S in (1, 37, 4099):
+        flat = rng.integers(0, nb, S)
+        flat[:min(S, 3)] = [nb - 1, 0, 1][:min(S, 3)]
+        flat = torch.from_numpy(flat).to(dev)
+        first = torch.from_numpy(rng.integers(0, 1 << 31, S).astype(
+            np.int32)).to(dev)
+        idf = torch.from_numpy((rng.random(S) * 4).astype(np.float32)
+                               ).to(dev)
+        act = torch.from_numpy((rng.random(S) < 0.85).astype(np.int32)
+                               ).to(dev)
+        act[0] = 1
+        args = (rows[0], coffs[0][flat], bws[0][flat], first, rows[1],
+                coffs[1][flat], bws[1][flat], idf, act)
+        e = max(e, _exact(f"bm25_blocks_compact S={S}",
+                          bops.bm25_blocks_compact(*args),
+                          bref.bm25_blocks_compact_ref(*args)))
+    err["bm25_blocks_compact"] = e
     torch.cuda.synchronize()
     return err
 
@@ -180,19 +288,24 @@ def phase_slice(args, dev):
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
     argv = ["--device", str(dev), "--config", "full", "--docs",
-            str(args.docs), "--batch-docs", str(args.batch_docs),
+            str(args.docs // 2), "--batch-docs", str(args.batch_docs),
             "--requests", str(args.requests), "--slots", "32",
             "--query-terms", "4", "--topk", "10", "--deletes", "8",
             "--updates", "4"]
-    with ShapeRecorder() as rec:
+    rec = ShapeRecorder()
+    with rec:
         _build.reset_launches()
         phases, report = serve.main(argv)
         launches = dict(_build.LAUNCHES)
-    for name in ("pack", "bm25_blocks", "bm25_blocks_midgrid"):
-        if launches[name] <= 0:
-            raise AssertionError(f"the main path never launched {name}: "
-                                 f"{launches}")
+    _require(launches, ("pack", "bm25_blocks", "bm25_blocks_midgrid"),
+             "the in-memory slice")
     return phases, report, launches, rec
+
+
+def _require(launches: dict, names, path: str) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{path} never launched {name}: {launches}")
 
 
 def check_ids_by_true_score(dense, q, v_p, i_p, i_d, max_k: int = 4096):
@@ -277,12 +390,18 @@ def phase_checks(phases, dev, batch0, k: int = 10) -> dict:
     return out
 
 
+def _leading(name: str, args) -> int:
+    """A kernel call's leading size S: blocks (the compact op's first
+    argument is the whole rows array; its blocks are its offsets)."""
+    return int(args[1 if name == "bm25_blocks_compact" else 0].shape[0])
+
+
 class ShapeRecorder:
-    """Wraps the kernel ops the main path calls, for the slice only: counts
-    each op's calls by their leading size S (blocks) and keeps a copy of
-    the first call's arguments at each S, so ``phase_timing`` can time
-    every kernel on the inputs the path gave it. The launch counts stay
-    the wrappers' own."""
+    """Wraps the kernel ops the main paths call, only while a path runs
+    (``with rec:``, once per counted run): counts each op's calls by their
+    leading size S (blocks) and keeps a copy of the first call's
+    arguments at each S, so ``phase_timing`` can time every kernel on the
+    inputs the paths gave it. The launch counts stay the wrappers' own."""
 
     def __init__(self):
         import collections
@@ -290,17 +409,19 @@ class ShapeRecorder:
         from repro_torch.kernels.postings_pack import ops as pops
         self.counts = collections.defaultdict(collections.Counter)
         self.args: dict = collections.defaultdict(dict)
-        # (module, attribute, kernel name): where the path looks each op up
-        self._sites = [(pops, "pack", "pack"),
+        # (module, attribute, kernel name): where the paths look each op
+        # up (the storage codec and the reader build call pops.pack)
+        self._sites = [(pops, "pack", "pack"), (pops, "unpack", "unpack"),
                        (query, "bm25_blocks", "bm25_blocks"),
-                       (query, "bm25_blocks_midgrid", "bm25_blocks_midgrid")]
+                       (query, "bm25_blocks_midgrid", "bm25_blocks_midgrid"),
+                       (query, "bm25_blocks_compact", "bm25_blocks_compact")]
         self._orig = [getattr(m, a) for m, a, _ in self._sites]
 
     def _wrap(self, fn, name):
         import torch
 
         def recorded(*args, **kwargs):
-            S = int(args[0].shape[0])
+            S = _leading(name, args)
             self.counts[name][S] += 1
             if S not in self.args[name]:
                 self.args[name][S] = (
@@ -320,6 +441,214 @@ class ShapeRecorder:
         return False
 
 
+def _index_bytes(readers) -> int:
+    """Device bytes of the readers' block-max indexes (every tensor)."""
+    import dataclasses
+    import torch
+    return sum(v.numel() * v.element_size() for r in readers
+               for v in (getattr(r.index, f.name)
+                         for f in dataclasses.fields(r.index))
+               if torch.is_tensor(v))
+
+
+def _served_batches(done, slots: int):
+    """The served requests in rid order, as (queries, scores, ids) per
+    scheduler batch of ``slots``."""
+    import numpy as np
+    import torch
+    done = sorted(done, key=lambda r: r.rid)
+    for s in range(0, len(done), slots):
+        chunk = done[s:s + slots]
+        yield (np.stack([r.terms for r in chunk]).astype(np.int32),
+               torch.stack([torch.as_tensor(r.scores) for r in chunk]),
+               torch.stack([torch.as_tensor(r.doc_ids) for r in chunk]))
+
+
+def phase_durable(args, dev, card, rec, del_ids, upd_ids,
+                  k: int = 10) -> tuple:
+    """The durable path (phase 7 of the module docstring). Returns its
+    report and the launch counts of its two counted runs, summed."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs.lucene_envelope import CONFIG
+    from repro_torch.core.indexer import Indexer
+    from repro_torch.core.searcher import IndexSearcher, ReaderCache
+    from repro_torch.data.corpus import CW09B_SMALL, SyntheticCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.serving.query_scheduler import (QueryRequest,
+                                                     QueryScheduler)
+    from repro_torch.storage import FSDirectory, open_searcher
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    spec = dataclasses.replace(CW09B_SMALL, n_docs=args.docs)
+    corpus = SyntheticCorpus(spec, doc_buffer_len=CONFIG.doc_len)
+    n_batches = max(args.docs // args.batch_docs, 2)
+    rep = {"docs": n_batches * args.batch_docs}
+    t0 = time.perf_counter()
+    batches = serve.generate_batches(corpus, n_batches + 1, args.batch_docs)
+    rep["generate_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    vocab = np.unique(batches[0][:32])[1:]
+    reqs = [QueryRequest(rid=i, terms=rng.choice(vocab, size=4,
+                                                 replace=False), k=k)
+            for i in range(-32, args.requests)]
+    warm, reqs = reqs[:32], reqs[32:]
+    # the index lives on the machine's local disk inside the checkout's
+    # build/ tree (gitignored), apart from --out, and is removed at the end
+    tmp = ROOT / "build" / f"chip_smoke_durable_{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    try:
+        # --- counted run 1: index + commit, recover, serve -------------
+        _build.reset_launches()
+        with rec:
+            ix = Indexer(cfg=CONFIG, device=dev, wal=True,
+                         target_dir=FSDirectory(str(tmp)))
+            t0 = time.perf_counter()
+            for b in batches[:n_batches]:
+                ix.index_batch(b)
+            ix.delete(del_ids)
+            for d in upd_ids:
+                d = int(d)
+                ix.update(d, batches[d % n_batches][d % args.batch_docs])
+            t1 = time.perf_counter()
+            gen = ix.commit()
+            sync()
+            t2 = time.perf_counter()
+            codec = dict(_build.LAUNCHES)
+            rep.update(index_s=t1 - t0, commit_s=t2 - t1,
+                       docs_per_s=rep["docs"] / (t2 - t0), gen=gen,
+                       bytes_by_suffix=ix.store.encoded_bytes_by_suffix(
+                           ix.merger.live_segments()),
+                       bytes_written=ix.store.bytes_encoded_written,
+                       codec_pack_launches=codec["pack"])
+            t0 = time.perf_counter()
+            gen_r, searcher = open_searcher(
+                FSDirectory(str(tmp)), ReaderCache(compact=True, device=dev))
+            sync()
+            rep["recover_s"] = time.perf_counter() - t0
+            rep["codec_unpack_launches"] = _build.LAUNCHES["unpack"]
+            if gen_r != gen or not all(r.index.compact
+                                       for r in searcher.readers):
+                raise AssertionError("recovery did not serve the commit "
+                                     "through the compact layout")
+            sched = QueryScheduler(searcher=searcher, slots=32, max_terms=4,
+                                   k=k, device=dev)
+            for r in warm:
+                sched.submit(r)
+            sched.step()
+            t0 = time.perf_counter()
+            done, lat = serve._serve(sched, reqs, dev)
+            dt = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+        print(f"[durable] on {card}: {rep['docs']} docs to durable at "
+              f"{rep['docs_per_s']:.0f} docs/s (index {rep['index_s']:.2f}s"
+              f" + commit {rep['commit_s']:.2f}s; corpus generation "
+              f"{rep['generate_s']:.2f}s apart); encoded bytes by suffix "
+              f"{rep['bytes_by_suffix']} ({rep['bytes_written']} written in "
+              f"all); codec launches: pack {rep['codec_pack_launches']} "
+              f"(index + commit), unpack {rep['codec_unpack_launches']} "
+              f"(recovery)", flush=True)
+        rep.update(qps=len(done) / dt, served=len(done),
+                   batch_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+                   batch_p99_ms=float(np.percentile(lat, 99)) * 1e3,
+                   segments=searcher.n_segments, live_docs=searcher.n_docs)
+        print(f"[durable] on {card}: recovered commit {gen} "
+              f"({searcher.n_segments} segments, {searcher.n_docs} live "
+              f"docs) into the compact layout in {rep['recover_s']:.2f}s; "
+              f"served {len(done)} queries at {rep['qps']:.1f} QPS, "
+              f"batch-of-32 latency p50 {rep['batch_p50_ms']:.2f} ms p99 "
+              f"{rep['batch_p99_ms']:.2f} ms; launches {launches}",
+              flush=True)
+        _require(launches, ("pack", "unpack", "bm25_blocks_compact"),
+                 "the durable path")
+
+        # --- checks (not counted): dense layout, exhaustive ------------
+        t0 = time.perf_counter()
+        dense = ReaderCache(device=dev).refresh(
+            [r.seg for r in searcher.readers])
+        exhaustive = IndexSearcher(readers=searcher.readers, prune=False,
+                                   device=dev)
+        ids_moved, checked, dense_ms = 0, 0, []
+        for bi, (q, v_s, i_s) in enumerate(_served_batches(done, 32)):
+            t1 = time.perf_counter()
+            v_d, i_d = dense.search_batched(q, k)
+            sync()
+            dense_ms.append((time.perf_counter() - t1) * 1e3)
+            if not torch.equal(v_s.view(torch.int32),
+                               v_d.view(torch.int32)):
+                raise AssertionError(f"batch {bi}: compact values != dense")
+            if not bool(torch.isfinite(v_s).all()) or v_s.shape[1] != k:
+                raise AssertionError(f"batch {bi}: malformed top-k")
+            if not torch.equal(i_s, i_d):
+                ids_moved += int((i_s != i_d).sum())
+                check_ids_by_true_score(dense, q, v_s, i_s, i_d)
+            if bi < 2:
+                v_e, i_e = exhaustive.search_batched(q, k)
+                if not torch.equal(v_s.view(torch.int32),
+                                   v_e.view(torch.int32)):
+                    raise AssertionError(f"batch {bi}: pruned != "
+                                         f"exhaustive")
+                check_ids_by_true_score(exhaustive, q, v_s, i_s, i_e)
+            checked += q.shape[0]
+        rep.update(compact_eq_dense_queries=checked,
+                   dense_batch_p50_ms=float(np.percentile(dense_ms, 50)),
+                   ids_differ_positions=ids_moved,
+                   pruned_eq_exhaustive_queries=min(checked, 64),
+                   compact_index_bytes=_index_bytes(searcher.readers),
+                   dense_index_bytes=_index_bytes(dense.readers))
+        print(f"[durable] checks: {checked} served queries equal the dense "
+              f"layout over the same recovered segments (ids differ at "
+              f"{ids_moved} positions, all among equal true scores; the "
+              f"dense layout's batch p50 {rep['dense_batch_p50_ms']:.2f} ms "
+              f"on {card}); "
+              f"pruned == exhaustive on the first 64; device bytes of the "
+              f"index: compact {rep['compact_index_bytes']} vs dense "
+              f"{rep['dense_index_bytes']} ({time.perf_counter() - t0:.1f}s)"
+              , flush=True)
+        q0 = next(_served_batches(done, 32))[0]
+        del dense, exhaustive, sched, searcher, done
+
+        # --- counted run 2: WAL, drop, reopen, replay --------------------
+        _build.reset_launches()
+        with rec:
+            extra = batches[n_batches]
+            ix.index_batch(extra)      # acked: in the WAL and RAM only
+            v_b, i_b = ix.refresh().search_batched(q0, k)
+            del ix                     # dropped without close()
+            t0 = time.perf_counter()
+            ix2 = Indexer(cfg=CONFIG, device=dev, wal=True,
+                          target_dir=FSDirectory(str(tmp)))
+            sync()
+            rep["reopen_s"] = time.perf_counter() - t0
+            rep["wal_replayed_docs"] = ix2.stats.docs
+            v_a, i_a = ix2.refresh().search_batched(q0, k)
+            more = dict(_build.LAUNCHES)
+        ix2.close()
+        if rep["wal_replayed_docs"] != extra.shape[0]:
+            raise AssertionError(f"WAL replayed {rep['wal_replayed_docs']} "
+                                 f"docs, {extra.shape[0]} were acked")
+        if not (torch.equal(v_a.view(torch.int32), v_b.view(torch.int32))
+                and torch.equal(i_a, i_b)):
+            raise AssertionError("the reopened index answers a query batch "
+                                 "differently than before the drop")
+        print(f"[durable] WAL: {extra.shape[0]} acked docs, not committed; "
+              f"the reopened indexer recovered + replayed "
+              f"{rep['wal_replayed_docs']} in {rep['reopen_s']:.2f}s and a "
+              f"query batch returns what it returned before the drop; "
+              f"launches {more}", flush=True)
+        for name, n in more.items():
+            launches[name] += n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rep, launches
+
+
 def _plane_bytes(bw_docs, bw_tf, keep) -> int:
     """Bytes of the bit planes a block needs: bw planes of 4 words each,
     for the kept blocks only."""
@@ -331,9 +660,19 @@ def _work(name, args, kwargs, out):
     input read once (planes only up to each block's bit width, and only
     for blocks the kernel scores), each output written once."""
     import torch
-    S = int(args[0].shape[0])
-    if name in ("pack", "unpack"):
+    S = _leading(name, args)
+    if name == "pack":
         return S * 128 * 4 + S * (512 + 4), 0
+    if name == "unpack":
+        # the live planes (16 B each) and bw in; the (S, 128) words out
+        return int(args[1].to(torch.int64).sum()) * 16 + S * 4 + S * 512, 0
+    if name == "bm25_blocks_compact":
+        # coff/bw/first x2 less one first, idf, active; the live plane
+        # rows (16 B each) of the scored blocks; three (S, 128) outputs
+        keep = args[8].to(torch.int64)
+        nbytes = S * 7 * 4 + _plane_bytes(args[2], args[6], keep) \
+            + S * 128 * 12
+        return nbytes, int(keep.sum()) * 128 * 2
     act = args[6].to(torch.int64)
     if name == "bm25_blocks":
         keep = act
@@ -352,10 +691,11 @@ def _work(name, args, kwargs, out):
 def phase_timing(rec, launches, err) -> tuple:
     """Each kernel at every leading size S the main path gave it, on the
     arguments it was given there: held exactly against its plain version,
-    then timed (median of 21 launches; the plain version median of 3).
+    then timed: the kernel by its device time (``_device_ms``, median of
+    21 launches), the plain version by events around the call (median of
+    3; its host launch time included, as its users pay it).
     A kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are means over the
-    path's launches (each S weighted by its launch count). unpack is not
-    on the path: it runs at pack's shapes, on pack's outputs."""
+    paths' launches (each S weighted by its launch count)."""
     from repro_torch.kernels.bm25_blockmax import ops as bops
     from repro_torch.kernels.bm25_blockmax import ref as bref
     from repro_torch.kernels.postings_pack import ops as pops
@@ -365,26 +705,28 @@ def phase_timing(rec, launches, err) -> tuple:
              "bm25_blocks": (bops.bm25_blocks,
                              lambda *a, k1, b: bref.bm25_blocks_ref(*a, k1)),
              "bm25_blocks_midgrid": (bops.bm25_blocks_midgrid,
-                                     bref.bm25_blocks_midgrid_ref)}
+                                     bref.bm25_blocks_midgrid_ref),
+             "bm25_blocks_compact": (
+                 bops.bm25_blocks_compact,
+                 lambda *a, k1: bref.bm25_blocks_compact_ref(*a, k1))}
     sources = {"pack": ("postings_pack.cu", "postings_pack/kernel.py:56"),
                "unpack": ("postings_pack.cu", "postings_pack/kernel.py:80"),
                "bm25_blocks": ("bm25_blockmax.cu",
                                "bm25_blockmax/kernel.py:250"),
                "bm25_blocks_midgrid": ("bm25_blockmax.cu",
-                                       "bm25_blockmax/kernel.py:294")}
+                                       "bm25_blockmax/kernel.py:294"),
+               "bm25_blocks_compact": ("bm25_blockmax.cu",
+                                       "bm25_blockmax/kernel.py:210")}
     line, per_shape = [], {}
     for name, (kern, plain) in calls.items():
-        rec_name = "pack" if name == "unpack" else name
-        weights = rec.counts[rec_name]
-        if sum(weights.values()) != launches[rec_name]:
-            raise AssertionError(f"{rec_name}: {sum(weights.values())} calls"
-                                 f" recorded, {launches[rec_name]} launches")
+        weights = rec.counts[name]
+        if sum(weights.values()) != launches[name]:
+            raise AssertionError(f"{name}: {sum(weights.values())} calls"
+                                 f" recorded, {launches[name]} launches")
         rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
         by = {"bytes": 0.0, "operations": 0.0}
         for S in sorted(weights):
-            a, kw = rec.args[rec_name][S]
-            if name == "unpack":
-                a, kw = tuple(pops.pack(a[0])), {}
+            a, kw = rec.args[name][S]
             out = kern(*a, **kw)
             out = list(out) if isinstance(out, (tuple, list)) else [out]
             want = plain(*a, **kw)
@@ -394,7 +736,7 @@ def phase_timing(rec, launches, err) -> tuple:
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = f32_ops / F32_OPS_PER_S * 1e3
             row = {"S": S, "launches": weights[S],
-                   "ms": _median_ms(lambda: kern(*a, **kw)),
+                   "ms": _device_ms(lambda: kern(*a, **kw)),
                    "plain_ms": _median_ms(lambda: plain(*a, **kw), n=3,
                                           warm=1),
                    "bound_ms": max(t_bytes, t_ops),
@@ -558,6 +900,21 @@ def main(argv=None) -> int:
     print(f"[profile] host self time (cProfile): "
           f"{prof['top_host_self_ms'][:6]}", flush=True)
 
+    # the slice's lifecycle targets (as launch/serve.py picks them), for
+    # the durable path; then the slice's snapshots are released
+    import numpy as np
+    served = np.unique(np.concatenate(
+        [r.doc_ids for r in phases["refreshed"][1] if r.doc_ids is not None]))
+    served = served[served >= 0]
+    del_ids, upd_ids = served[:8], served[8:12]
+    del phases
+    t0 = time.perf_counter()
+    durable, d_launches = phase_durable(args, dev, card, rec, del_ids,
+                                        upd_ids)
+    durable["durable_s"] = time.perf_counter() - t0
+    print(f"[durable] ({durable['durable_s']:.1f}s)", flush=True)
+    launches = {n: launches[n] + d_launches[n] for n in launches}
+
     t0 = time.perf_counter()
     line, per_shape = phase_timing(rec, launches, err)
     print(f"[timing] ({time.perf_counter() - t0:.1f}s)", flush=True)
@@ -569,6 +926,7 @@ def main(argv=None) -> int:
         "build_s": build_s, "ptxas": {k: v[1] for k, v in
                                       _build.BUILD_LOG.items()},
         "report": report, "checks": checks, "profile": prof,
+        "durable": durable,
         "kernels": line, "kernel_shapes": per_shape,
         "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(json.dumps({"kernels": line}))

@@ -1,7 +1,7 @@
 """Carry state of the JAX package over to the port, so both compute on
 identical state: a ``repro`` ``Segment`` becomes a ``repro_torch``
-``Segment``, and a ``repro`` ``BlockMaxIndex`` (fixed-stride layout, with
-its packed planes) becomes the port's.
+``Segment``, and a ``repro`` ``BlockMaxIndex`` (either layout: packed
+planes, or the compact layout's plane rows) becomes the port's.
 
 The inputs are duck-typed: anything with the right attributes, whose
 arrays convert with ``numpy.asarray``. Nothing of the JAX package is
@@ -47,20 +47,23 @@ def _arr(a, dtype, device) -> torch.Tensor:
 
 
 def block_index_from_repro(index, device="cpu") -> BlockMaxIndex:
-    """The port's ``BlockMaxIndex`` over the same packed planes, bit widths,
-    block metadata and statistics as ``index`` (a ``repro`` fixed-stride
-    ``BlockMaxIndex``)."""
-    if getattr(index, "packed_docs", None) is None:
-        raise NotImplementedError(
-            "the compact layout is not ported yet (ROADMAP.md, Queue 2)")
+    """The port's ``BlockMaxIndex`` over the same packed planes (or compact
+    plane rows and row offsets), bit widths, block metadata and statistics
+    as ``index`` (a ``repro`` ``BlockMaxIndex``)."""
     device = torch.device(device)
+    compact = getattr(index, "cplanes_docs", None) is not None
+    planes = {}
+    for n in ("packed_docs", "packed_tf", "cplanes_docs", "cplanes_tf"):
+        v = getattr(index, n, None)
+        planes[n] = None if v is None else _words(v, device)
+    if compact:
+        planes.update(coff_docs=_arr(index.coff_docs, np.int32, device),
+                      coff_tf=_arr(index.coff_tf, np.int32, device))
     return BlockMaxIndex(
         terms=_arr(index.terms, np.int32, device),
         term_block_start=_arr(index.term_block_start, np.int32, device),
         idf=_arr(index.idf, np.float32, device),
-        packed_docs=_words(index.packed_docs, device),
         bw_docs=_arr(index.bw_docs, np.int32, device),
-        packed_tf=_words(index.packed_tf, device),
         bw_tf=_arr(index.bw_tf, np.int32, device),
         first_doc=_arr(index.first_doc, np.int32, device),
         max_tf=_arr(index.max_tf, np.float32, device),
@@ -72,4 +75,5 @@ def block_index_from_repro(index, device="cpu") -> BlockMaxIndex:
                 else _arr(index.min_dl, np.float32, device)),
         avgdl=float(index.avgdl),
         last_doc=(None if index.last_doc is None
-                  else _arr(index.last_doc, np.int32, device)))
+                  else _arr(index.last_doc, np.int32, device)),
+        **planes)

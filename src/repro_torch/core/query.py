@@ -1,11 +1,13 @@
 """BM25 query evaluation over the block-max index, in PyTorch: the
-counterpart of the JAX package's ``core/query.py`` (fixed-stride layout;
-the compact layout is not ported yet, see ``ROADMAP.md``).
+counterpart of the JAX package's ``core/query.py``.
 
 Layout: per term, postings padded to 128-lane blocks; per block: first and
 last doc id, max tf, shortest doc length, packed doc gaps and tfs
-(lane-blocked PFor). Two evaluations share one contract — the same top-k
-values, bit for bit:
+(lane-blocked PFor), either in fixed-stride (NB, 32, 4) buffers or in the
+COMPACT layout — only each block's live bit-plane rows, the bytes the
+storage codec writes, decoded inside the fused decompress-and-score
+kernel (``bm25_blocks_compact``). Two evaluations share one contract —
+the same top-k values, bit for bit:
 
 ``bm25_topk_dense``  every candidate lane is decoded and scored; the
     pruning decision only masks blocks. The parity oracle, and with
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.bm25_blockmax.ops import (bm25_blocks,
+                                                   bm25_blocks_compact,
                                                    bm25_blocks_midgrid)
 from repro_torch.kernels.postings_pack import ops as pack_ops
 
@@ -60,15 +63,15 @@ MIDGRID_MAX_K = 32
 
 @dataclass
 class BlockMaxIndex:
-    """Device-resident block-max scoring index (fixed-stride layout).
-    Packed words are uint32 bit patterns in int32 tensors."""
+    """Device-resident block-max scoring index. Packed words are uint32
+    bit patterns in int32 tensors."""
 
     terms: torch.Tensor            # (T,) int32, sorted
     term_block_start: torch.Tensor  # (T+1,) int32 CSR into blocks
     idf: torch.Tensor              # (T,) f32 segment-local idf
-    packed_docs: torch.Tensor      # (NB, 32, 4) int32
+    packed_docs: torch.Tensor      # (NB, 32, 4) int32; None when compact
     bw_docs: torch.Tensor          # (NB,) int32
-    packed_tf: torch.Tensor        # (NB, 32, 4) int32
+    packed_tf: torch.Tensor        # (NB, 32, 4) int32; None when compact
     bw_tf: torch.Tensor            # (NB,) int32
     first_doc: torch.Tensor        # (NB,) int32 local (slot) doc ids
     max_tf: torch.Tensor           # (NB,) f32
@@ -84,6 +87,18 @@ class BlockMaxIndex:
     # the last (largest) local doc id each block holds: [first, last] is
     # the block's doc-id range, which the BMW overlap bound reads
     last_doc: torch.Tensor = None  # (NB,) int32
+    # COMPACT layout: instead of the fixed-stride buffers above, only the
+    # live bit-plane rows (block-major, then plane; tail-padded with 32
+    # zero rows as in the JAX package) plus each block's first row. The
+    # scorer reads the selected blocks' rows straight from these.
+    cplanes_docs: torch.Tensor = None  # (sum(bw_docs) + 32, 4) int32
+    coff_docs: torch.Tensor = None     # (NB,) int32
+    cplanes_tf: torch.Tensor = None    # (sum(bw_tf) + 32, 4) int32
+    coff_tf: torch.Tensor = None       # (NB,) int32
+
+    @property
+    def compact(self) -> bool:
+        return self.cplanes_docs is not None
 
     @property
     def device(self) -> torch.device:
@@ -224,13 +239,22 @@ def _gather_term_blocks(index: BlockMaxIndex, q_terms: torch.Tensor,
 
 
 def _decode_score_blocks(index: BlockMaxIndex, flat, idf_flat, act_flat):
-    """Decode + score a flat (S,) list of block ids (the one seam the dense
-    grid and the compacted survivor scorer both go through)."""
+    """Decode + score a flat (S,) list of block ids under either layout
+    (the one seam the dense grid and the compacted survivor scorer both go
+    through): fixed-stride indexes gather the (S, 32, 4) buffers, compact
+    ones hand the whole rows arrays plus the selected blocks' offsets to
+    the fused decompress-and-score op. Identical (docids, tf, num)."""
+    idf_flat = idf_flat.to(torch.float32).contiguous()
+    act_flat = act_flat.to(torch.int32).contiguous()
+    if index.compact:
+        return bm25_blocks_compact(
+            index.cplanes_docs, index.coff_docs[flat], index.bw_docs[flat],
+            index.first_doc[flat], index.cplanes_tf, index.coff_tf[flat],
+            index.bw_tf[flat], idf_flat, act_flat, k1=index.k1)
     return bm25_blocks(
         index.packed_docs[flat], index.bw_docs[flat], index.first_doc[flat],
-        index.packed_tf[flat], index.bw_tf[flat],
-        idf_flat.to(torch.float32).contiguous(),
-        act_flat.to(torch.int32).contiguous(), k1=index.k1, b=index.b)
+        index.packed_tf[flat], index.bw_tf[flat], idf_flat, act_flat,
+        k1=index.k1, b=index.b)
 
 
 def _lane_scores(tf, num, docids, doc_norm):
@@ -640,7 +664,7 @@ def bm25_topk(index: BlockMaxIndex, q_terms, k: int = 10,
     ``prune=True`` runs the compacted pruned path; ``prune=False`` the
     dense exhaustive one. Results are identical either way. ``midgrid``
     scores survivors through the theta-tightening kernel when its gates
-    hold (no tombstones, k <= ``MIDGRID_MAX_K``)."""
+    hold (no tombstones, fixed-stride layout, k <= ``MIDGRID_MAX_K``)."""
     if not prune:
         return bm25_topk_dense(index, q_terms, k, prune=False, idf_q=idf_q,
                                doc_norm=doc_norm, max_blocks=max_blocks,
@@ -658,7 +682,8 @@ def bm25_topk(index: BlockMaxIndex, q_terms, k: int = 10,
             index, ci, cf, ca, cr, 1, k, doc_norm, live)
 
     scorer_mid_for = None
-    if midgrid and live is None and k <= MIDGRID_MAX_K:
+    if midgrid and live is None and not index.compact \
+            and k <= MIDGRID_MAX_K:
         def scorer_mid_for(_n):
             return lambda ci, cf, ca, cr, cu, th: score_survivors_midgrid(
                 index, ci, cf, ca, cr, cu, th, 1, k, doc_norm)

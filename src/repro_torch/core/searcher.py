@@ -1,6 +1,9 @@
 """Segment-native read path in PyTorch: per-segment readers and the
 multi-segment searcher (the counterpart of the JAX package's
-``core/searcher.py``, fixed-stride layout).
+``core/searcher.py``), over either index layout: fixed-stride packed
+planes, or the compact layout (``compact=True``: only the live plane rows
+the storage codec writes, scored by the fused decompress-and-score
+kernel).
 
   ``build_block_index``   vectorized (numpy CSR block-alignment) builder of
                           the device-resident ``BlockMaxIndex`` of one
@@ -47,9 +50,13 @@ from repro_torch.kernels.postings_pack import ops as pack_ops
 # per-shape evaluator sharing
 # --------------------------------------------------------------------------
 
-_IDX_FIELDS = ("terms", "term_block_start", "idf", "packed_docs", "bw_docs",
-               "packed_tf", "bw_tf", "first_doc", "max_tf", "doc_norm",
-               "min_dl", "last_doc")
+_IDX_FIELDS_DENSE = ("terms", "term_block_start", "idf", "packed_docs",
+                     "bw_docs", "packed_tf", "bw_tf", "first_doc", "max_tf",
+                     "doc_norm", "min_dl", "last_doc")
+_IDX_FIELDS_COMPACT = ("terms", "term_block_start", "idf", "bw_docs",
+                       "bw_tf", "first_doc", "max_tf", "doc_norm", "min_dl",
+                       "last_doc", "cplanes_docs", "coff_docs",
+                       "cplanes_tf", "coff_tf")
 _EVAL_CACHE_CAP = 128
 _EVAL_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _EVAL_HITS = [0]
@@ -59,11 +66,13 @@ _EVAL_LOCK = threading.Lock()
 def _shared_evaluator(kind_key: tuple, index: BlockMaxIndex, build):
     """Fetch or build the evaluator for this kind + the index's shape
     signature. ``build()`` returns a callable whose first argument is the
-    index. Returns ``(fn, was_cached)``."""
-    arrays = [getattr(index, n) for n in _IDX_FIELDS]
-    shapes = tuple((tuple(a.shape), str(a.dtype)) for a in arrays)
-    key = (kind_key, index.n_docs, index.max_blocks_per_term, index.k1,
-           index.b, str(index.device), shapes)
+    index. Returns ``(fn, was_cached)``. The layout is part of the key:
+    a segment's compact and dense indexes never share an entry."""
+    names = _IDX_FIELDS_COMPACT if index.compact else _IDX_FIELDS_DENSE
+    shapes = tuple((tuple(getattr(index, n).shape),
+                    str(getattr(index, n).dtype)) for n in names)
+    key = (kind_key, index.compact, index.n_docs, index.max_blocks_per_term,
+           index.k1, index.b, str(index.device), shapes)
     with _EVAL_LOCK:
         fn = _EVAL_CACHE.get(key)
         if fn is not None:
@@ -106,13 +115,28 @@ def _finish_index(seg: Segment, deltas: np.ndarray, tfs: np.ndarray,
                   term_nb: np.ndarray, df: np.ndarray,
                   k1: float, b: float, min_dl: np.ndarray,
                   dl: np.ndarray = None, last_doc: np.ndarray = None,
-                  device="cpu") -> BlockMaxIndex:
+                  compact: bool = False, device="cpu") -> BlockMaxIndex:
     """Shared tail of the builder: pack the blocks on ``device`` and
     assemble the index. ``dl`` is the LOCAL-SLOT-ordered doc-length
-    vector (a reordered build passes the permuted one)."""
+    vector (a reordered build passes the permuted one). ``compact=True``
+    keeps only the live bit-plane rows + per-block row offsets instead of
+    the fixed-stride packed buffers."""
     device = torch.device(device)
     pd, bwd = pack_ops.pack(_u32_tensor(deltas, device))
     pt, bwt = pack_ops.pack(_u32_tensor(tfs, device))
+    extra = {}
+    if compact:
+        # keep only what the storage codec writes: the compacted plane
+        # rows, tail-padded with 32 zero rows (the JAX package's shapes),
+        # and each block's first row
+        pad = torch.zeros((32, pack_ops.WORDS_PER_PLANE), dtype=torch.int32,
+                          device=device)
+        extra = dict(
+            cplanes_docs=torch.cat([pack_ops.compact_planes(pd, bwd), pad]),
+            coff_docs=(torch.cumsum(bwd, 0) - bwd).to(torch.int32),
+            cplanes_tf=torch.cat([pack_ops.compact_planes(pt, bwt), pad]),
+            coff_tf=(torch.cumsum(bwt, 0) - bwt).to(torch.int32))
+        pd = pt = None
 
     n_docs = seg.n_docs
     idf = np.log(1.0 + (n_docs - df + 0.5) / (df + 0.5))
@@ -137,7 +161,8 @@ def _finish_index(seg: Segment, deltas: np.ndarray, tfs: np.ndarray,
         max_blocks_per_term=int(np.max(term_nb)) if len(term_nb) else 1,
         k1=k1, b=b,
         min_dl=dev(min_dl, np.float32), avgdl=avgdl,
-        last_doc=dev(first_doc if last_doc is None else last_doc, np.int32))
+        last_doc=dev(first_doc if last_doc is None else last_doc, np.int32),
+        **extra)
 
 
 def _local_layout(seg: Segment):
@@ -156,11 +181,14 @@ def _local_layout(seg: Segment):
 
 
 def build_block_index(seg: Segment, k1: float = 0.9, b: float = 0.4,
+                      compact: bool = False,
                       device="cpu") -> BlockMaxIndex:
     """Block-align each term's postings and pack them — vectorized, O(P).
     Every term starts a fresh block; pad lanes carry gap 0 and tf 0. A
     segment with a BP ``reorder`` gets its blocks laid out over the
-    reordered slot space (scores and returned doc ids are unchanged)."""
+    reordered slot space (scores and returned doc ids are unchanged).
+    ``compact=True`` builds the fused decompress-and-score layout (see
+    ``_finish_index``)."""
     assert np.all(np.diff(seg.doc_ids) > 0), \
         "Segment.doc_ids must be sorted unique (np.searchsorted relies on it)"
     local_docs, tf_stream, dl_local = _local_layout(seg)
@@ -173,7 +201,7 @@ def build_block_index(seg: Segment, k1: float = 0.9, b: float = 0.4,
                              np.zeros(1, np.int64), np.zeros(1, np.int64),
                              np.zeros(1, np.int64), df, k1, b,
                              np.zeros(1, np.int64), dl=dl_local,
-                             device=device)
+                             compact=compact, device=device)
 
     n_post = len(seg.docs)
     block_term = np.repeat(np.arange(seg.n_terms), term_nb)   # (NB,)
@@ -196,7 +224,7 @@ def build_block_index(seg: Segment, k1: float = 0.9, b: float = 0.4,
                          df, k1, b,
                          np.minimum.reduceat(dl_local[local_docs], blk_s),
                          dl=dl_local, last_doc=local_docs[blk_s + sizes - 1],
-                         device=device)
+                         compact=compact, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -248,10 +276,10 @@ class SegmentReader:
 
     @classmethod
     def open(cls, seg: Segment, k1: float = 0.9, b: float = 0.4,
-             device="cpu") -> "SegmentReader":
+             compact: bool = False, device="cpu") -> "SegmentReader":
         device = torch.device(device)
         df_full = np.diff(seg.term_start).astype(np.int64)
-        index = build_block_index(seg, k1, b, device=device)
+        index = build_block_index(seg, k1, b, compact=compact, device=device)
         tmax, tmin = _term_impacts(index, seg.n_terms)
         r = seg.reorder
         doc_ids_local = seg.doc_ids if r is None else seg.doc_ids[r]
@@ -397,10 +425,11 @@ class SegmentReader:
                     midgrid: bool = True):
         """Compacted pruned top-k over a (B, Q) batch, through the midgrid
         kernel when its gates hold (``midgrid`` requested, no tombstones,
-        k within the in-kernel fold's budget, at most 128 batch rows).
-        Returns ``(vals (B, k), abs doc ids (B, k), PruneStats)``."""
+        fixed-stride layout, k within the in-kernel fold's budget, at most
+        128 batch rows). Returns ``(vals (B, k), abs doc ids (B, k),
+        PruneStats)``."""
         n_rows = int(q2d.shape[0])
-        use_mid = (midgrid and self.live is None
+        use_mid = (midgrid and self.live is None and not self.index.compact
                    and k <= MIDGRID_MAX_K and n_rows <= BLOCK)
         meta_f, scorer, mid = self._pruned_fns(k, max_blocks, n_rows,
                                                use_mid)
@@ -460,7 +489,14 @@ class IndexSearcher:
     device: object = None  # None: CUDA (raises without one); or "cpu"
     n_docs: int = 0                # LIVE docs in the snapshot
     avgdl: float = 1.0
-    # snapshot identity for result caching (0 = unkeyed)
+    # degraded serving: the snapshot was recovered minus quarantined
+    # segments; results are exact over the surviving docs, but
+    # ``missing_docs`` committed docs are absent
+    degraded: bool = False
+    missing_docs: int = 0
+    quarantined: tuple = ()        # quarantined segment base names
+    # snapshot identity for result caching (0 = unkeyed): one per
+    # distinct (seg_ids, quarantine) state a ReaderCache serves
     generation: int = 0
     prune_stats: PruneStats = None
     _doc_norms: list = None
@@ -617,7 +653,7 @@ class ReaderCache:
     prune: bool = True    # searchers serve the compacted pruned path
     bmw: bool = True      # BMW doc-range-overlap bounds (False: MaxScore)
     midgrid: bool = True  # in-grid theta tightening where gates hold
-    compact: bool = False  # the compact layout is not ported yet
+    compact: bool = False  # fused decompress-and-score index layout
     device: object = None  # None: CUDA (raises without one); or "cpu"
     builds: int = 0
     hits: int = 0
@@ -631,13 +667,12 @@ class ReaderCache:
                                   repr=False)
 
     def __post_init__(self):
-        if self.compact:
-            raise NotImplementedError(
-                "the compact index layout is not ported yet (ROADMAP.md, "
-                "Queue 2: bm25_blocks_compact)")
         self.device = resolve_device(self.device)
 
-    def refresh(self, segs: list) -> IndexSearcher:
+    def refresh(self, segs: list, recovery=None) -> IndexSearcher:
+        """``recovery`` (a ``storage.RecoveryInfo`` or any object with
+        ``quarantined``/``missing_docs``) marks the returned searcher
+        degraded: it serves ``segs`` while reporting what is missing."""
         with self._lock:
             have = dict(self._readers)
         by_base = {r.seg.base_id: r for r in have.values()}
@@ -651,7 +686,8 @@ class ReaderCache:
                 n_reopened += 1
             else:
                 fresh[seg.seg_id] = SegmentReader.open(
-                    seg, self.k1, self.b, device=self.device)
+                    seg, self.k1, self.b, compact=self.compact,
+                    device=self.device)
         with self._lock:
             self.builds += len(fresh) - n_reopened
             self.reopens += n_reopened
@@ -669,7 +705,12 @@ class ReaderCache:
                 self._max_seen = snap_max
                 self.evictions += len(set(self._readers) - set(live))
                 self._readers = live
-            gen_key = tuple(sorted(s.seg_id for s in segs))
+        quarantined = tuple(sorted(getattr(recovery, "quarantined", ())
+                                   or ()))
+        missing = int(getattr(recovery, "missing_docs", 0) or 0)
+        gen_key = (tuple(sorted(s.seg_id for s in segs)), quarantined,
+                   missing)
+        with self._lock:
             if gen_key != self._gen_key:
                 self._gen_key = gen_key
                 self._generation = next(_GENERATIONS)
@@ -677,4 +718,6 @@ class ReaderCache:
         return IndexSearcher(readers=readers, k1=self.k1, b=self.b,
                              prune=self.prune, bmw=self.bmw,
                              midgrid=self.midgrid, device=self.device,
+                             degraded=bool(quarantined),
+                             missing_docs=missing, quarantined=quarantined,
                              generation=generation)

@@ -105,3 +105,46 @@ class SyntheticCorpus:
         """Approximate 'raw compressed collection' bytes for throughput
         accounting (ClueWeb is ~4.6KB/doc compressed for 09b)."""
         return n_docs * self.spec.mean_doc_len * 12.0
+
+
+# ---------------------------------------------------------------------------
+# spooling the source collection through a storage Directory
+# ---------------------------------------------------------------------------
+# The paper reads the collection off a *source* medium while the index hits
+# a *target* medium. Spooling writes the batched doc buffers as checksummed
+# files into a source Directory once; ``iter_spooled`` then streams them
+# back through that directory during indexing, so source reads are measured
+# (and throttled) on their own device, physically separate from the target.
+
+_SPOOL_RE_PREFIX = "batch_"
+
+
+def spool_corpus(corpus: SyntheticCorpus, directory, n_batches: int,
+                 docs_per_batch: int) -> int:
+    """Write ``n_batches`` corpus batches into ``directory`` as
+    ``batch_<i>`` files (framed + checksummed); returns total bytes."""
+    from repro_torch.storage.codec import KIND_SPOOL, frame
+    import struct
+    total = 0
+    for i in range(n_batches):
+        toks = np.ascontiguousarray(corpus.batch(i, docs_per_batch),
+                                    np.int32)
+        payload = struct.pack("<QQ", *toks.shape) + toks.astype("<i4").tobytes()
+        total += directory.write_file(f"{_SPOOL_RE_PREFIX}{i:06d}",
+                                      frame(KIND_SPOOL, payload))
+    return total
+
+
+def iter_spooled(directory):
+    """Stream spooled batches back in batch order: yields
+    ``(batch_index, tokens (D, L) int32)``. Every read goes through the
+    directory (measured, throttled); checksums are verified per file."""
+    from repro_torch.storage.codec import KIND_SPOOL, unframe
+    import struct
+    for name in directory.list_files():
+        if not name.startswith(_SPOOL_RE_PREFIX):
+            continue
+        payload = unframe(directory.read_file(name), KIND_SPOOL)
+        d, l = struct.unpack_from("<QQ", payload, 0)
+        toks = np.frombuffer(payload, "<i4", offset=16).reshape(d, l)
+        yield int(name[len(_SPOOL_RE_PREFIX):]), toks.copy()

@@ -49,11 +49,13 @@ SIGNATURES = {
                         _P, _P, _L, _P),
         "bm25_midgrid": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
                          _I, _I, _P, _P, _P, _P, _P, _L, _P),
+        "bm25_compact": (_P, _L, _P, _P, _P, _P, _L, _P, _P, _P, _P, _F,
+                         _P, _P, _P, _L, _P),
     },
 }
 
 LAUNCHES = {"pack": 0, "unpack": 0, "bm25_blocks": 0,
-            "bm25_blocks_midgrid": 0}
+            "bm25_blocks_midgrid": 0, "bm25_blocks_compact": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -4,7 +4,9 @@
 full candidate grid on the dense exhaustive path, or the compacted,
 bucket-padded survivor array on the pruned path (``core/query.py``) — and
 returns per-lane (docids, tf, num). ``bm25_blocks_midgrid`` adds the
-in-grid theta tightening. On CUDA tensors each op launches its kernel in
+in-grid theta tightening. ``bm25_blocks_compact`` reads the selected
+blocks' planes from the compact layout's rows (fused decompress-and-score).
+On CUDA tensors each op launches its kernel in
 ``csrc/bm25_blockmax.cu``; on CPU tensors it runs ``ref.py``. There is no
 fallback from one to the other.
 """
@@ -69,6 +71,41 @@ def bm25_blocks(packed_docs, bw_docs, first_doc, packed_tf, bw_tf, idf,
     _build.check(rc, "bm25_blocks")
     _build.LAUNCHES["bm25_blocks"] += 1
     return (doc, tf, num, part) if partials else (doc, tf, num)
+
+
+def bm25_blocks_compact(cplanes_docs, coff_docs, bw_docs, first_doc,
+                        cplanes_tf, coff_tf, bw_tf, idf, active, *,
+                        k1: float = 0.9):
+    """-> (docids, tf, num) each (S, 128) for the S selected blocks, whose
+    planes are read from the compact rows ``cplanes_*`` (P, 4) at row
+    offsets ``coff_*`` (S,) — equal to ``bm25_blocks`` over the expanded
+    planes."""
+    if not cplanes_docs.is_cuda:
+        return ref.bm25_blocks_compact_ref(
+            cplanes_docs, coff_docs, bw_docs, first_doc, cplanes_tf, coff_tf,
+            bw_tf, idf, active, k1)
+    S = coff_docs.shape[0]
+    for t, name in ((cplanes_docs, "cplanes_docs"), (cplanes_tf,
+                                                     "cplanes_tf")):
+        _build.check_tensor(t, torch.int32, (t.shape[0], 4), name)
+    for t, name in ((coff_docs, "coff_docs"), (bw_docs, "bw_docs"),
+                    (first_doc, "first_doc"), (coff_tf, "coff_tf"),
+                    (bw_tf, "bw_tf"), (active, "active")):
+        _build.check_tensor(t, torch.int32, (S,), name)
+    _build.check_tensor(idf, torch.float32, (S,), "idf")
+    dev = cplanes_docs.device
+    doc = torch.empty((S, BLOCK), dtype=torch.int32, device=dev)
+    tf = torch.empty((S, BLOCK), dtype=torch.float32, device=dev)
+    num = torch.empty((S, BLOCK), dtype=torch.float32, device=dev)
+    rc = _build.lib("bm25_blockmax").bm25_compact(
+        cplanes_docs.data_ptr(), cplanes_docs.shape[0], coff_docs.data_ptr(),
+        bw_docs.data_ptr(), first_doc.data_ptr(), cplanes_tf.data_ptr(),
+        cplanes_tf.shape[0], coff_tf.data_ptr(), bw_tf.data_ptr(),
+        idf.data_ptr(), active.data_ptr(), _f32(k1 + 1.0), doc.data_ptr(),
+        tf.data_ptr(), num.data_ptr(), S, _build.stream_ptr(cplanes_docs))
+    _build.check(rc, "bm25_blocks_compact")
+    _build.LAUNCHES["bm25_blocks_compact"] += 1
+    return doc, tf, num
 
 
 def bm25_blocks_partials(packed_docs, bw_docs, first_doc, packed_tf, bw_tf,

@@ -39,6 +39,31 @@ def bm25_blocks_ref(packed_docs, bw_docs, first_doc, packed_tf, bw_tf,
             torch.where(act, num, 0.0))
 
 
+def expand_rows_ref(cplanes, coff, bw):
+    """Gather-expand compact bit-plane rows into the fixed-stride form.
+
+    ``cplanes`` (P, 4) holds every block's live planes back to back
+    (block-major, then plane: ``compact_planes``' output, tail-padded with
+    32 zero rows); ``coff`` (S,) is each selected block's first row, ``bw``
+    (S,) its plane count. Returns (S, 32, 4) with dead planes zeroed."""
+    j = torch.arange(32, device=cplanes.device)
+    valid = j[None, :] < bw[:, None]
+    rows = torch.where(valid, coff.to(torch.int64)[:, None] + j[None, :], 0)
+    return torch.where(valid[:, :, None], cplanes[rows], 0)
+
+
+def bm25_blocks_compact_ref(cplanes_docs, coff_docs, bw_docs, first_doc,
+                            cplanes_tf, coff_tf, bw_tf, idf, active,
+                            k1: float = 0.9):
+    """Fused decompress-and-score over the compact layout: expand the
+    selected blocks' planes from the rows, then ``bm25_blocks_ref`` — the
+    same (docids, tf, num)."""
+    pd = expand_rows_ref(cplanes_docs, coff_docs, bw_docs)
+    pt = expand_rows_ref(cplanes_tf, coff_tf, bw_tf)
+    return bm25_blocks_ref(pd, bw_docs, first_doc, pt, bw_tf, idf, active,
+                           k1)
+
+
 def lane_partials_ref(tf, num, k1: float = 0.9, b: float = 0.4):
     """(1, 128) per-lane max of num / (tf + k1*(1-b)) over active blocks
     (``tf``/``num`` already zero on inactive blocks)."""

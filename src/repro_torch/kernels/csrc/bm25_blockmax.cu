@@ -6,6 +6,8 @@
 //       (_bm25_kernel, and _bm25_kernel_partials with partials=True)
 //   kernels/bm25_blockmax/kernel.py::bm25_blocks_midgrid_pallas
 //       (_bm25_kernel_midgrid)
+//   kernels/bm25_blockmax/kernel.py::bm25_blocks_compact_pallas
+//       (_bm25_compact_kernel, _expand_rows)
 //
 // Per block of 128 lanes: unpack the doc-gap and tf bit-planes, inclusive
 // int32 prefix sum of the gaps onto first_doc, tf as f32, and
@@ -37,6 +39,19 @@
 //   2. one CTA walking the steps in order: skip flags and the carry L in
 //      shared memory — only the sequential part stays sequential;
 //   3. one CTA per block: zero the outputs of skipped blocks.
+//
+// compact: the same per-block work, but each selected block's planes come
+// straight from the COMPACT rows (only the live planes of every block,
+// back to back: the bytes the storage codec writes) at its row offset
+// coff. The TPU kernel loads a fixed 32-row window at coff, because
+// Pallas needs static shapes, and masks the next block's rows with
+// plane < bw. Here thread t of the 128-thread CTA loads word t % 4 of
+// plane t / 4 only when that plane is live, so exactly bw rows are read
+// (coalesced, 16 B per row), dead planes stage as zero, and no row past
+// the array is touched. Then the same unpack, scan and f32 order as
+// bm25_blocks. Inactive blocks (bucket padding) read nothing and write 0.
+// Bound: bytes, as bm25_blocks, but the planes cost 16 B per live plane
+// instead of 512 B per block.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -89,6 +104,25 @@ struct Lane {
   bool act;
 };
 
+// one block's lanes from its staged planes (wd, wt: 32 planes x 4 words
+// in shared memory, staged and synchronized by the caller)
+__device__ __forceinline__ Lane score_lane(const uint32_t* wd,
+                                           const uint32_t* wt, int bwd,
+                                           int bwt, int32_t first, float idf,
+                                           int32_t active, float c,
+                                           uint32_t* slots) {
+  const int t = threadIdx.x;
+  const uint32_t gap = unpack_lane(wd, bwd, t);
+  const uint32_t tfu = unpack_lane(wt, bwt, t);
+  const uint32_t scan = block_scan(gap, slots);
+  Lane r;
+  r.doc = static_cast<int32_t>(static_cast<uint32_t>(first) + scan);
+  r.tf = __uint2float_rn(tfu);
+  r.num = __fmul_rn(__fmul_rn(idf, c), r.tf);
+  r.act = active > 0;
+  return r;
+}
+
 __device__ __forceinline__ Lane decode_lane(
     const uint32_t* __restrict__ pd, const int32_t* __restrict__ bwd,
     const int32_t* __restrict__ first, const uint32_t* __restrict__ pt,
@@ -99,15 +133,20 @@ __device__ __forceinline__ Lane decode_lane(
   wd[t] = pd[b * kBlock + t];
   wt[t] = pt[b * kBlock + t];
   __syncthreads();
-  const uint32_t gap = unpack_lane(wd, bwd[b], t);
-  const uint32_t tfu = unpack_lane(wt, bwt[b], t);
-  const uint32_t scan = block_scan(gap, slots);
-  Lane r;
-  r.doc = static_cast<int32_t>(static_cast<uint32_t>(first[b]) + scan);
-  r.tf = __uint2float_rn(tfu);
-  r.num = __fmul_rn(__fmul_rn(idf[b], c), r.tf);
-  r.act = active[b] > 0;
-  return r;
+  return score_lane(wd, wt, bwd[b], bwt[b], first[b], idf[b], active[b], c,
+                    slots);
+}
+
+// stage one block's live planes from compact rows: word t % 4 of plane
+// t / 4, zero past the block's width (and past the rows array)
+__device__ __forceinline__ void stage_compact(
+    const uint32_t* __restrict__ rows, long long n_rows, int32_t coff,
+    int32_t bw, uint32_t* w) {
+  const int t = threadIdx.x;
+  const int p = t >> 2;
+  const long long row = static_cast<long long>(coff) + p;
+  w[t] = (p < bw && row >= 0 && row < n_rows) ? rows[row * 4 + (t & 3)]
+                                              : 0u;
 }
 
 __global__ void bm25_kernel(
@@ -128,6 +167,35 @@ __global__ void bm25_kernel(
     part_rows[o] = (r.act && r.tf > 0.0f)
         ? __fdiv_rn(r.num, __fadd_rn(r.tf, min_norm)) : 0.0f;
   }
+}
+
+__global__ void bm25_compact_kernel(
+    const uint32_t* __restrict__ cpd, long long n_rows_d,
+    const int32_t* __restrict__ coffd, const int32_t* __restrict__ bwd,
+    const int32_t* __restrict__ first, const uint32_t* __restrict__ cpt,
+    long long n_rows_t, const int32_t* __restrict__ cofft,
+    const int32_t* __restrict__ bwt, const float* __restrict__ idf,
+    const int32_t* __restrict__ active, float c,
+    int32_t* __restrict__ doc_out, float* __restrict__ tf_out,
+    float* __restrict__ num_out) {
+  __shared__ uint32_t wd[kBlock], wt[kBlock], slots[4];
+  const long long b = blockIdx.x;
+  const int t = threadIdx.x;
+  const long long o = b * kBlock + t;
+  if (active[b] <= 0) {  // uniform over the CTA: no barrier is skipped
+    doc_out[o] = 0;
+    tf_out[o] = 0.0f;
+    num_out[o] = 0.0f;
+    return;
+  }
+  const int32_t nd = bwd[b], nt = bwt[b];
+  stage_compact(cpd, n_rows_d, coffd[b], nd, wd);
+  stage_compact(cpt, n_rows_t, cofft[b], nt, wt);
+  __syncthreads();
+  const Lane r = score_lane(wd, wt, nd, nt, first[b], idf[b], 1, c, slots);
+  doc_out[o] = r.doc;
+  tf_out[o] = r.tf;
+  num_out[o] = r.num;
 }
 
 // per-lane max over the S rows, starting from 0 (the Pallas carry's init)
@@ -238,6 +306,29 @@ int bm25_blocks(const void* pd, const void* bwd, const void* first,
     lane_max_kernel<<<1, kBlock, 0, st>>>(
         static_cast<const float*>(part_rows), static_cast<float*>(part_out),
         S);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -> doc_out (S,128) i32, tf_out/num_out (S,128) f32 for the S selected
+// blocks, their planes read from the compact rows cpd (n_rows_d, 4) and
+// cpt (n_rows_t, 4) at the blocks' offsets coffd/cofft
+int bm25_compact(const void* cpd, long long n_rows_d, const void* coffd,
+                 const void* bwd, const void* first, const void* cpt,
+                 long long n_rows_t, const void* cofft, const void* bwt,
+                 const void* idf, const void* active, float c, void* doc_out,
+                 void* tf_out, void* num_out, long long S, void* stream) {
+  if (S > 0) {
+    bm25_compact_kernel<<<static_cast<unsigned>(S), kBlock, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(cpd), n_rows_d,
+        static_cast<const int32_t*>(coffd), static_cast<const int32_t*>(bwd),
+        static_cast<const int32_t*>(first), static_cast<const uint32_t*>(cpt),
+        n_rows_t, static_cast<const int32_t*>(cofft),
+        static_cast<const int32_t*>(bwt), static_cast<const float*>(idf),
+        static_cast<const int32_t*>(active), c,
+        static_cast<int32_t*>(doc_out), static_cast<float*>(tf_out),
+        static_cast<float*>(num_out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.postings_pack import ref
 
 BLOCK = ref.BLOCK
+WORDS_PER_PLANE = ref.WORDS_PER_PLANE
 bit_width = ref.bit_width
 packed_bytes = ref.packed_bytes
+compact_planes = ref.compact_planes
+expand_planes = ref.expand_planes
 
 
 def pad_to_blocks(stream: torch.Tensor, fill: int = 0):

@@ -5,6 +5,7 @@ more — asserting that no tombstoned doc surfaces.
 
   python -m repro_torch.launch.serve                       # smoke, on CUDA
   python -m repro_torch.launch.serve --device cpu          # plain PyTorch
+  python -m repro_torch.launch.serve --device cpu --index-dir DIR
   python -m repro_torch.launch.serve --config full --docs 1048576 \\
       --batch-docs 16384 --requests 1024
 
@@ -15,6 +16,12 @@ full ``lucene_envelope`` CONFIG over a corpus with ClueWeb09b's law
 tombstones serve through the midgrid kernel; the phase after the deletes
 takes the plain BM25 kernel (the midgrid gate needs a tombstone-free
 segment).
+
+``--index-dir DIR`` makes the index durable (an ``FSDirectory``): the
+first half is committed and the first phase serves the searcher
+recovered from those bytes (``open_searcher``); after the deletes and
+updates a second commit is recovered and must serve the indexer's live
+doc count. An existing index in DIR is resumed at its last commit.
 """
 from __future__ import annotations
 
@@ -28,9 +35,11 @@ import torch
 
 from repro_torch.configs import lucene_envelope
 from repro_torch.core.indexer import Indexer
+from repro_torch.core.searcher import ReaderCache
 from repro_torch.data.corpus import CW09B_SMALL, TINY, SyntheticCorpus
 from repro_torch.device import resolve_device
 from repro_torch.serving.query_scheduler import QueryRequest, QueryScheduler
+from repro_torch.storage import FSDirectory, open_searcher
 
 
 def _sync(device):
@@ -78,7 +87,10 @@ def serve_retrieval(args):
     corpus = SyntheticCorpus(spec, doc_buffer_len=cfg.doc_len)
     n_batches = max(args.docs // args.batch_docs, 2)
     half = n_batches // 2
-    ix = Indexer(cfg=cfg, device=device)
+    target_dir = FSDirectory(args.index_dir) if args.index_dir else None
+    ix = Indexer(cfg=cfg, device=device, target_dir=target_dir)
+    recovered_docs = sum(s.live_doc_count
+                         for s in ix.merger.live_segments())
     report = {"device": str(device), "docs": n_batches * args.batch_docs}
     t0 = time.perf_counter()
     batches = generate_batches(corpus, n_batches, args.batch_docs)
@@ -92,7 +104,20 @@ def serve_retrieval(args):
         ix.index_batch(batches[i])
     report["index_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    searcher = ix.refresh()
+    if target_dir is not None:
+        gen = ix.commit()
+        report["commit1_s"] = time.perf_counter() - t0
+        # serve what recovery reads back from the committed bytes, not
+        # the in-memory segments
+        gen_r, searcher = open_searcher(target_dir,
+                                        ReaderCache(device=device))
+        assert gen_r == gen, (gen_r, gen)
+        print(f"durable index: commit gen {gen} "
+              f"({recovered_docs} docs recovered at startup); serving "
+              f"{searcher.n_docs} docs recovered from {args.index_dir}")
+    else:
+        searcher = ix.refresh()
+    _sync(device)
     report["refresh1_s"] = time.perf_counter() - t0
     sched = QueryScheduler(searcher=searcher, slots=args.slots,
                            max_terms=args.query_terms, k=args.topk,
@@ -179,6 +204,18 @@ def serve_retrieval(args):
               f"no deleted doc served")
         phases["lifecycle"] = (sched.searcher, done3)
         report.update(deleted=len(del_ids), updated=len(upd_ids))
+        if target_dir is not None:
+            gen = ix.commit()
+            _, s_rec = open_searcher(FSDirectory(args.index_dir),
+                                     ReaderCache(device=device))
+            n_live = sum(s.live_doc_count
+                         for s in ix.merger.live_segments())
+            assert s_rec.n_docs == n_live, (s_rec.n_docs, n_live)
+            livs = [f for f in FSDirectory(args.index_dir).list_files()
+                    if f.endswith(".liv")]
+            print(f"lifecycle durable: commit gen {gen}, "
+                  f"{len(livs)} .liv delete generation(s), recovery "
+                  f"serves {s_rec.n_docs} live docs")
     snap = ix.merger.snapshot()
     report.update(flush_wall_s=ix.stats.wall_s,
                   merge_wall_s=snap["merge_wall_s"],
@@ -207,6 +244,10 @@ def build_parser():
                          "next snapshot never returns them")
     ap.add_argument("--updates", type=int, default=4,
                     help="replace this many served docs (delete + re-add)")
+    ap.add_argument("--index-dir", default=None,
+                    help="durable FSDirectory index: commit, recover from "
+                         "disk, then serve (resumes an existing index at "
+                         "its last commit point)")
     return ap
 
 

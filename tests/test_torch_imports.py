@@ -17,7 +17,14 @@ KERNEL_CALLS = {"pack", "unpack", "bm25_blocks", "bm25_blocks_partials",
                 "pp_unpack", "bm25_midgrid", "_decode_score_blocks",
                 "score_survivors", "score_survivors_midgrid",
                 "build_block_index", "_finish_index", "search_batched",
-                "refresh", "topk_pruned", "pruned_eval", "serve_retrieval"}
+                "refresh", "topk_pruned", "pruned_eval", "serve_retrieval",
+                "bm25_blocks_compact", "bm25_compact",
+                # the storage codec's pfor streams (pack/unpack kernels)
+                "_enc_pfor", "unpack_streams", "unpack_segment",
+                "_enc_stream", "_dec_stream",
+                "encode_segment", "decode_segment", "write_segment",
+                "read_segment", "open_latest", "open_latest_degraded",
+                "open_searcher", "_open_latest_full", "commit"}
 
 
 def _modules():

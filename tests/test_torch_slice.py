@@ -84,14 +84,10 @@ def test_entry_points_need_cuda_or_explicit_cpu():
 
 
 def test_later_slices_raise_not_implemented():
-    for kw in ({"target_dir": object()}, {"mesh": object()},
-               {"refresh_every": 1.0}, {"wal": True}, {"scrub_every": 1.0},
-               {"merge_threads": 2}):
+    for kw in ({"mesh": object()}, {"refresh_every": 1.0},
+               {"merge_threads": 2}, {"publisher": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Indexer(cfg=SMOKE, device="cpu", **kw)
     ix = Indexer(cfg=SMOKE, device="cpu")
-    for call in (ix.envelope_report, ix.commit, ix.index_spooled):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ReaderCache(compact=True, device="cpu")
+        ix.envelope_report()
