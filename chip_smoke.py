@@ -9,59 +9,85 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 1. device   — the card's ``name, power.limit`` (nvidia-smi);
 2. build    — compile the hand-written kernels from ``src/repro_torch/
               kernels/csrc`` (one nvcc per source, in parallel);
-3. parity   — each kernel against its plain PyTorch version on the card,
-              exactly: pack/unpack on random words with bw 0 and 32 edge
+3. parity   — each kernel against its plain PyTorch version on the card:
+              exactly, pack/unpack on random words with bw 0 and 32 edge
               blocks, bm25_blocks with and without partials, midgrid at
               every pow2 bucket up to 4096 blocks for k in {1, 10, 32} and
               128 query rows, bm25_blocks_compact at S in {1, 37, 4099}
-              with bw-0/bw-32 blocks and the rows array's last block;
-4. slice    — the main path through ``repro_torch.launch.serve`` with the
-              full ``lucene_envelope`` CONFIG over a corpus with
-              ClueWeb09b's law scaled to half of ``--docs``: index,
+              with bw-0/bw-32 blocks and the rows array's last block; and
+              flash_attention within the JAX kernel test's tolerances
+              (2e-5 in f32, 2e-2 in bf16) on that test's sweep, D in {8,
+              16, 160}, D 256 over 1100 tokens with a 300-token window,
+              and rows with nothing to attend;
+4. lm       — the LM path, with the card to itself: ``launch.serve --mode
+              lm`` with gemma2-9b at full width and depth (42 layers,
+              seeded random fp32 weights), 4 requests of 8192 tokens, 16
+              generated; then ``DecodeScheduler`` with 2 slots serving 3
+              ragged requests (8192, 4500, 300 tokens). Prefill s, decode
+              ms per step, tok/s, peak device memory; the flash kernel
+              must launch exactly once per layer per prefill;
+5. lm-checks — the kernel against its plain version on the q, k, v the
+              prefill gave one local and one global layer (one batch row,
+              in bf16 and cast to f32); at full width, prefill over t + 1
+              tokens against prefill over t then one decode step, in bf16
+              and f32, with two planted faults that must exceed the
+              limit; at SMOKE width, the same weights on the card and on
+              the CPU. The LM's state is then freed;
+6. slice    — the retrieval main path through ``repro_torch.launch.serve``
+              with the full ``lucene_envelope`` CONFIG over a corpus with
+              ClueWeb09b's law scaled to ``--docs // SLICE_CUT``: index,
               refresh, serve ``--requests`` queries (32 slots, 4 terms,
               k=10), index more, refresh, serve, delete 8 + update 4
-              docs, refresh, serve. Kernel launch counts are zeroed just
-              before and read just after; every kernel of the path must
-              have launched;
-5. checks   — pruned == exhaustive bit for bit on the first 32 queries on
+              docs, refresh, serve;
+7. checks   — pruned == exhaustive bit for bit on the first 32 queries on
               the card, in the tombstone-free and the tombstoned snapshot,
               every pruned id carrying its true score (ids may differ only
               among equal scores); the card's top-k equal the port's CPU
               path on a 2^14-doc index built from the same batch;
-6. profile  — where serving time goes: device busy share of 4 served
+8. profile  — where serving time goes: device busy share of 4 served
               batches under ``torch.profiler`` (device-side events only),
               top kernels, and the host functions with the most own time
               under ``cProfile``;
-7. durable  — the durable path at the same width and depth: index every
-              batch into an ``FSDirectory`` on the local disk with the
-              WAL, apply the slice's 8 deletes + 4 updates, ``commit()``;
-              recover with ``open_searcher(..., ReaderCache(compact=
-              True))`` and serve ``--requests`` queries through the
-              compact layout; hold every batch against a dense-layout
-              searcher over the same recovered segments and pruned
-              against exhaustive; then index one more batch with the WAL
-              and no commit, drop that indexer, reopen the directory and
-              check that the WAL replays the acked docs and a query batch
-              returns what it returned before the drop. Launch counts are
-              zeroed before and read after the indexing + recovery +
-              serving run and the WAL run (not around the comparisons);
-8. timing   — each kernel on the very inputs the paths gave it, at every
-              leading size (blocks) it was launched with: held exactly
-              against its plain version once more, then its median device
-              time over 21 launches queued behind a spin kernel (the
-              host's launch time hidden; L2 flushed before each), its
-              plain version's time with the host's launch time included,
-              and its bound (the bytes its data needs at 3.35 TB/s vs its
-              f32 operations at 67 TFLOP/s, the H100 SXM peaks at a 700 W
-              limit; integer bit operations are not counted — the table
-              of peaks has no rate for them), each averaged over the
-              path's launches.
+9. durable  — the durable path at ``--docs``: index every batch into an
+              ``FSDirectory`` on the local disk with the WAL, apply the
+              slice's 8 deletes + 4 updates, ``commit()``; recover with
+              ``open_searcher(..., ReaderCache(compact=True))`` and serve
+              ``--requests`` queries through the compact layout; hold
+              every batch against a dense-layout searcher over the same
+              recovered segments and pruned against exhaustive; then
+              index one more batch with the WAL and no commit, drop that
+              indexer, reopen the directory and check that the WAL
+              replays the acked docs and a query batch returns what it
+              returned before the drop;
+10. timing  — each kernel on the very inputs the paths gave it, at every
+              shape it was launched with (blocks; for flash attention
+              batch, length and window): held against its plain version
+              once more, then its median device time over 21 launches
+              queued behind a spin kernel (the host's launch time hidden;
+              L2 flushed before each), its plain version's time on the
+              same inputs with the host's launch time included (flash
+              attention's one batch row after the other), and its bound
+              (the bytes its data needs at 3.35 TB/s vs its operations at
+              the peak of their type: 67 TFLOP/s f32, 989 TFLOP/s bf16
+              dense, the H100 SXM peaks at a 700 W limit; integer bit
+              operations are not counted — the table of peaks has no rate
+              for them), each averaged over the paths' launches. Flash
+              attention's yardstick, on the same inputs and averaged the
+              same way: SDPA (causal, GQA, the window as a mask) at
+              softcap 0, beside the kernel at softcap 0.
 
-The durable path runs at ``--docs`` (2^20 by default) and the in-memory
-slice at half of it: at 2^20 docs each, the two paths took 726.7-864.8 s
-together and the script 835.3-1002.9 s of its 1200 s limit on an NVIDIA
-H100 80GB HBM3 at a 700.00 W power limit, and only the earlier path's
-depth may be cut.
+In every counted run (the LM path, the slice, the durable path's
+indexing + recovery + serving and its WAL run) the launch counts are
+zeroed just before and read just after, never around a comparison, and
+every kernel of the path must have launched.
+
+The durable path runs at ``--docs`` (2^20 by default) and may not be cut;
+the in-memory slice runs at ``--docs // SLICE_CUT``: at 2^20 docs each,
+the two paths took 726.7-864.8 s together and the script 835.3-1002.9 s
+of its 1200 s limit on an NVIDIA H100 80GB HBM3 at a 700.00 W power
+limit, and only the earlier path's depth may be cut; with the LM phases
+and the slice at 2^19 the script took 916.8 s, so the slice runs at
+2^18.
 
 Prints the kernels as one JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Details (ptxas report, every timing,
@@ -72,6 +98,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import gc
 import json
 import os
 import pstats
@@ -82,6 +109,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12     # dense tensor-core peak
+SLICE_CUT = 4               # the in-memory slice runs at --docs // SLICE_CUT
 
 
 def _fail(msg: str) -> int:
@@ -282,24 +311,305 @@ def phase_parity(dev) -> dict:
     return err
 
 
-def phase_slice(args, dev):
-    """The main path; returns its snapshots, report, launch counts and
-    the inputs each kernel was given (``ShapeRecorder``)."""
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel test's
+LM_ARGV = ["--mode", "lm", "--arch", "gemma2-9b", "--config", "full",
+           "--requests", "4", "--prompt-len", "8192", "--gen", "16"]
+SCHED_PROMPTS = (8192, 4500, 300)   # ragged requests through 2 slots
+SCHED_GEN = 16
+LM_FULL_CHECK_LEN = 4500            # past gemma2's 4096-token window
+# see phase_lm_checks; on gemma2-9b's random weights on an H100 the sound
+# readings were 0.0205 (bf16) and 4.7e-6 (f32), the planted faults
+# 0.16-0.22 in both
+LM_FULL_CHECK_RMS = {"bfloat16": 0.05, "float32": 1e-4}
+LM_SMOKE_TOL = {"float32": 2e-5, "bfloat16": 1.5e-2}
+
+
+def _flash_err(got, want, what: str) -> float:
+    """max |got - want|; raises unless they agree within the JAX kernel
+    test's tolerance for their dtype (absolute and relative)."""
+    import torch
+    tol = FLASH_TOL[str(want.dtype).removeprefix("torch.")]
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if got.dtype != want.dtype or got.shape != want.shape \
+            or not torch.allclose(g, w, rtol=tol, atol=tol):
+        raise AssertionError(f"{what}: the kernel differs from its plain "
+                             f"version (max abs err {err}, tolerance {tol})")
+    return err
+
+
+def phase_flash_parity(dev) -> dict:
+    """The flash kernel against its plain version on random inputs: the
+    JAX kernel test's sweep (``tests/test_kernels_flash.py``: four shapes,
+    four window/softcap pairs, non-causal with Sq != Skv) in f32 and
+    bf16, plus D in {8, 16, 160}, D = 256 over 1100 tokens with a
+    window of 300, and rows with nothing to attend. Returns
+    the max abs error per dtype."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [((1, 128, 128, 4, 4, 64), {}), ((2, 256, 256, 8, 2, 64), {}),
+             ((1, 192, 320, 4, 2, 128), {}), ((1, 128, 128, 2, 1, 256), {}),
+             *[((1, 128, 128, 4, 2, 64), dict(window=w, softcap=c))
+               for w, c in ((0, 0.0), (64, 0.0), (0, 50.0), (32, 30.0))],
+             ((1, 64, 96, 2, 2, 64), dict(causal=False)),
+             ((2, 100, 100, 4, 2, 8), dict(window=24, softcap=50.0)),
+             ((2, 100, 100, 4, 2, 16), dict(window=40)),
+             ((2, 300, 300, 4, 2, 160), dict(window=100, softcap=50.0)),
+             # gemma2's D, a ragged tail and a window that starts inside
+             # a kv tile: the band's tile skipping at its edges
+             ((1, 1100, 1100, 4, 2, 256), dict(window=300, softcap=50.0)),
+             # causal, window 4, Sq > Skv: rows 19.. attend to nothing
+             ((1, 64, 16, 2, 1, 64), dict(window=4))]
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        err[name] = 0.0
+        for (B, Sq, Skv, H, KVH, D), kw in cases:
+            q, k, v = (torch.randn(shape, generator=gen, device=dev
+                                   ).to(dtype)
+                       for shape in ((B, Sq, H, D), (B, Skv, KVH, D),
+                                     (B, Skv, KVH, D)))
+            got = fops.flash_attention(q, k, v, **kw)
+            want = fref.attention_ref(q, k, v, **kw)
+            err[name] = max(err[name], _flash_err(
+                got, want, f"flash {name} q {tuple(q.shape)} k "
+                           f"{tuple(k.shape)} {kw}"))
+        if not bool((got[:, 19:] == 0).all()):
+            raise AssertionError("flash: a row with nothing to attend is "
+                                 "not 0")
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_lm(dev, card, rec) -> tuple:
+    """The LM serving path at gemma2-9b's full width and depth: ``launch.
+    serve --mode lm`` (4 requests of 8192 tokens, 16 generated), then
+    ``DecodeScheduler`` with 2 slots serving 3 ragged requests. Launch
+    counts are zeroed before and read after both. Returns (report,
+    launches, cfg, params)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.serving.scheduler import DecodeScheduler, Request
+    torch.cuda.reset_peak_memory_stats(dev)
+    with rec:
+        _build.reset_launches()
+        out = serve.main([*LM_ARGV, "--device", str(dev)])
+        gen_launches = _build.LAUNCHES["flash_attention"]
+        cfg, params, toks = out["cfg"], out["params"], out["tokens"]
+        rep = dict(out["report"])
+        rep["generate_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        del out
+        rng = np.random.default_rng(1)
+        reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, n),
+                        max_new=SCHED_GEN)
+                for i, n in enumerate(SCHED_PROMPTS)]
+        t0 = time.perf_counter()
+        sched = DecodeScheduler(cfg=cfg, params=params, slots=2,
+                                max_len=max(SCHED_PROMPTS) + 2 * SCHED_GEN,
+                                device=dev)
+        for r in reqs:
+            sched.submit(r)
+        done = sched.run_to_completion()
+        torch.cuda.synchronize(dev)
+        rep["sched_s"] = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    del sched
+    rep["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    rep["sched_tokens"] = sum(len(r.generated) for r in done)
+    rep["sched_tok_per_s"] = rep["sched_tokens"] / rep["sched_s"]
+    n_layers = cfg.n_layers
+    if gen_launches != n_layers:
+        raise AssertionError(f"generate's prefill launched the flash kernel "
+                             f"{gen_launches} times, not once per layer "
+                             f"({n_layers})")
+    if launches["flash_attention"] != n_layers * (1 + len(SCHED_PROMPTS)):
+        raise AssertionError(f"the scheduler's prefills launched the flash "
+                             f"kernel {launches['flash_attention'] - n_layers}"
+                             f" times, not {n_layers} per admitted request")
+    _require(launches, ("flash_attention",), "the LM path")
+    if toks.shape != (4, 16) or not bool(((toks >= 0)
+                                          & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate returned malformed tokens {toks}")
+    if sorted(r.rid for r in done) != list(range(len(SCHED_PROMPTS))) \
+            or any(len(r.generated) != SCHED_GEN for r in done):
+        raise AssertionError("the scheduler did not finish every request "
+                             "with its tokens")
+    rep["flash_launches_per_prefill"] = gen_launches
+    print(f"[lm] on {card}: {cfg.name} at full width ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.param_count():,} fp32 "
+          f"params, random weights from seed 0, init {rep['init_s']:.2f}s):"
+          f" {rep['requests']} requests x {rep['prompt_len']}-token prompts,"
+          f" {rep['gen']} tokens each: prefill "
+          f"{rep['prefill_s']:.3f}s, decode {rep['decode_ms_per_step']:.2f} "
+          f"ms/step, {rep['tok_per_s']:.2f} tok/s; peak memory "
+          f"{rep['generate_peak_gb']:.2f} GB; flash launches per prefill "
+          f"{gen_launches}", flush=True)
+    print(f"[lm] DecodeScheduler, 2 slots, requests of {SCHED_PROMPTS} "
+          f"tokens x {SCHED_GEN}: {rep['sched_tokens']} tokens in "
+          f"{rep['sched_s']:.2f}s ({rep['sched_tok_per_s']:.2f} tok/s, "
+          f"admission prefills included); peak memory {rep['peak_gb']:.2f} "
+          f"GB; launches {launches}", flush=True)
+    return rep, launches, cfg, params
+
+
+def _rms(x) -> float:
+    import torch
+    return float(torch.sqrt(torch.mean(x.to(torch.float64) ** 2)))
+
+
+def phase_lm_checks(dev, cfg, params, rec) -> dict:
+    """Three checks of the LM path (not counted):
+    1. the kernel against its plain version on the q, k, v the prefill
+       gave one local and one global layer, at one batch row (the plain
+       version holds H * S^2 f32 scores): as they came, in bf16, and cast
+       to f32, where only the order of summation differs (FLASH_TOL);
+    2. at full width, the logits of a prefill over t + 1 tokens against a
+       prefill over t tokens then one ``decode_step`` (t = 4500, past the
+       window), at the config's bf16 and at f32 compute. In bf16 the two
+       paths round at other points (the kernel keeps p in f32, decode casts
+       it to bf16; other matmul shapes) across 42 layers; in f32 only the
+       order of summation differs. Their difference must stay within
+       LM_FULL_CHECK_RMS of the logits' RMS and their argmax agree unless
+       the top-2 margin is within twice the largest difference. Two
+       planted faults, read on the same cache each run, must exceed that
+       limit: decode at ``lengths - 1`` (a wrong position and cache slot)
+       and decode with the window off (a wrong mask);
+    3. at SMOKE width, gemma2, qwen3 and stablelm with the same weights on
+       the card and on the CPU: prefill logits and 3 teacher-forced decode
+       steps within LM_SMOKE_TOL (the CPU tests' tolerances against the
+       JAX package), in f32 and at the configs' bf16."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.convert import lm_params_from_repro
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.models import transformer as TF
+    out = {}
+    S = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
+    for window in (cfg.sliding_window, 0):
+        a, kw = rec.args["flash_attention"][(4, S, window)]
+        for dtype in (torch.bfloat16, torch.float32):
+            row = [t[:1].to(dtype) for t in a]
+            name = str(dtype).removeprefix("torch.")
+            out[f"path_layer_err_window_{window}_{name}"] = _flash_err(
+                fops.flash_attention(*row, **kw),
+                fref.attention_ref(*row, **kw),
+                f"flash on the prefill's inputs in {name}, window {window}")
+            del row
+            torch.cuda.empty_cache()
+
+    t = LM_FULL_CHECK_LEN
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, t + 1))
+                            ).to(dev)
+    lengths = torch.tensor([t], device=dev)
+    no_window = dataclasses.replace(cfg, sliding_window=0)
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        _, want = TF.prefill(params, toks, c)
+        caches, _ = TF.prefill(params, toks[:, :t], c, pad_to=t + 1)
+        # sound first, then the window off (both write slot t alike), then
+        # the wrong slot t - 1 last: the three share one cache
+        _, got = TF.decode_step(params, caches, lengths, toks[:, t], c)
+        planted = {
+            "window_off": TF.decode_step(
+                params, caches, lengths, toks[:, t],
+                dataclasses.replace(no_window, compute_dtype=dtype))[1],
+            "position_minus_1": TF.decode_step(
+                params, caches, lengths - 1, toks[:, t], c)[1]}
+        if dtype == cfg.compute_dtype:
+            # where the LM's time goes, at batch 1 (device-side events):
+            # one decode step at length t (it rewrites slot t) and one
+            # t-token prefill
+            def decode():
+                TF.decode_step(params, caches, lengths, toks[:, t], cfg)
+                torch.cuda.synchronize(dev)
+
+            def prefill():
+                TF.prefill(params, toks[:, :t], cfg)
+                torch.cuda.synchronize(dev)
+            out["profile_decode_b1"] = _device_profile(decode)
+            out["profile_prefill_b1"] = _device_profile(prefill)
+        del caches
+        diff = (got - want).abs()
+        top2 = torch.topk(want[0], 2).values
+        chk = {"t": t, "max_abs_diff": float(diff.max()),
+                "rms_ratio": _rms(got - want) / _rms(want),
+                "logits_rms": _rms(want), "argmax_equal":
+                    bool(got.argmax(-1) == want.argmax(-1)),
+                "top2_margin": float(top2[0] - top2[1]),
+                "limit": LM_FULL_CHECK_RMS[dtype],
+                "planted_rms_ratio": {k: _rms(v - want) / _rms(want)
+                                      for k, v in planted.items()}}
+        out[f"full_decode_vs_prefill_{dtype}"] = chk
+        if not (chk["rms_ratio"] <= chk["limit"]
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"full width, {dtype}: prefill(t+1) vs "
+                                 f"prefill(t) + decode_step: {chk}")
+        if not chk["argmax_equal"] \
+                and chk["top2_margin"] > 2 * chk["max_abs_diff"]:
+            raise AssertionError(f"full width, {dtype}: decode's argmax "
+                                 f"differs at a clear margin")
+        if min(chk["planted_rms_ratio"].values()) <= chk["limit"]:
+            raise AssertionError(f"full width, {dtype}: a planted fault "
+                                 f"stays within the limit: {chk}")
+        del got, want, planted
+        torch.cuda.empty_cache()
+
+    smoke = {}
+    for arch in ("gemma2-9b", "qwen3-32b", "stablelm-12b"):
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(get_arch(arch).smoke,
+                                    compute_dtype=dtype)
+            p_cpu = TF.init_params(c, torch.Generator().manual_seed(0))
+            prompts = np.random.default_rng(1).integers(
+                1, c.vocab_size, (2, 100))
+            prompts[0, 96:] = 0
+            res = []
+            for d, p in (("cpu", p_cpu),
+                         (dev, lm_params_from_repro(p_cpu, dev))):
+                pr = torch.from_numpy(prompts).to(d)
+                caches, lg = TF.prefill(p, pr, c, pad_to=104)
+                lengths = (pr > 0).sum(1)
+                steps = [lg.cpu()]
+                for i in range(3):
+                    last = torch.from_numpy(prompts[:, i + 1]).to(d)
+                    caches, lg = TF.decode_step(p, caches, lengths + i, last,
+                                                c)
+                    steps.append(lg.cpu())
+                res.append(torch.stack(steps))
+            err = float((res[0] - res[1]).abs().max())
+            smoke[f"{arch}/{dtype}"] = err
+            if not err <= LM_SMOKE_TOL[dtype]:
+                raise AssertionError(f"smoke {arch} {dtype}: card logits "
+                                     f"differ from the CPU's by {err}")
+    out["smoke_card_vs_cpu_max_abs"] = smoke
+    return out
+
+
+def phase_slice(args, dev, rec):
+    """The retrieval main path; returns its snapshots, report and launch
+    counts (``rec`` keeps the inputs each kernel was given)."""
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
     argv = ["--device", str(dev), "--config", "full", "--docs",
-            str(args.docs // 2), "--batch-docs", str(args.batch_docs),
-            "--requests", str(args.requests), "--slots", "32",
-            "--query-terms", "4", "--topk", "10", "--deletes", "8",
-            "--updates", "4"]
-    rec = ShapeRecorder()
+            str(args.docs // SLICE_CUT), "--batch-docs",
+            str(args.batch_docs), "--requests", str(args.requests),
+            "--slots", "32", "--query-terms", "4", "--topk", "10",
+            "--deletes", "8", "--updates", "4"]
     with rec:
         _build.reset_launches()
         phases, report = serve.main(argv)
         launches = dict(_build.LAUNCHES)
     _require(launches, ("pack", "bm25_blocks", "bm25_blocks_midgrid"),
              "the in-memory slice")
-    return phases, report, launches, rec
+    return phases, report, launches
 
 
 def _require(launches: dict, names, path: str) -> None:
@@ -390,23 +700,29 @@ def phase_checks(phases, dev, batch0, k: int = 10) -> dict:
     return out
 
 
-def _leading(name: str, args) -> int:
-    """A kernel call's leading size S: blocks (the compact op's first
-    argument is the whole rows array; its blocks are its offsets)."""
+def _leading(name: str, args, kwargs=None):
+    """A kernel call's shape key S: blocks (the compact op's first argument
+    is the whole rows array; its blocks are its offsets); for flash
+    attention (batch, q length, window)."""
+    if name == "flash_attention":
+        return (int(args[0].shape[0]), int(args[0].shape[1]),
+                int(kwargs.get("window", 0)))
     return int(args[1 if name == "bm25_blocks_compact" else 0].shape[0])
 
 
 class ShapeRecorder:
     """Wraps the kernel ops the main paths call, only while a path runs
     (``with rec:``, once per counted run): counts each op's calls by their
-    leading size S (blocks) and keeps a copy of the first call's
-    arguments at each S, so ``phase_timing`` can time every kernel on the
-    inputs the paths gave it. The launch counts stay the wrappers' own."""
+    shape key S (blocks; for flash attention batch, length and window) and
+    keeps a copy of the first call's arguments at each S, so
+    ``phase_timing`` can time every kernel on the inputs the paths gave
+    it. The launch counts stay the wrappers' own."""
 
     def __init__(self):
         import collections
         from repro_torch.core import query
         from repro_torch.kernels.postings_pack import ops as pops
+        from repro_torch.models import transformer
         self.counts = collections.defaultdict(collections.Counter)
         self.args: dict = collections.defaultdict(dict)
         # (module, attribute, kernel name): where the paths look each op
@@ -414,14 +730,15 @@ class ShapeRecorder:
         self._sites = [(pops, "pack", "pack"), (pops, "unpack", "unpack"),
                        (query, "bm25_blocks", "bm25_blocks"),
                        (query, "bm25_blocks_midgrid", "bm25_blocks_midgrid"),
-                       (query, "bm25_blocks_compact", "bm25_blocks_compact")]
+                       (query, "bm25_blocks_compact", "bm25_blocks_compact"),
+                       (transformer, "flash_attention", "flash_attention")]
         self._orig = [getattr(m, a) for m, a, _ in self._sites]
 
     def _wrap(self, fn, name):
         import torch
 
         def recorded(*args, **kwargs):
-            S = _leading(name, args)
+            S = _leading(name, args, kwargs)
             self.counts[name][S] += 1
             if S not in self.args[name]:
                 self.args[name][S] = (
@@ -655,24 +972,48 @@ def _plane_bytes(bw_docs, bw_tf, keep) -> int:
     return int(((bw_docs + bw_tf) * keep).sum()) * 16
 
 
+def _live_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs a head attends: k <= q if causal, q - k < window if
+    window > 0."""
+    import numpy as np
+    q = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(q + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(Sq,
+                                                                   np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
 def _work(name, args, kwargs, out):
-    """(bytes moved, f32 operations) that this call's data needs: each
-    input read once (planes only up to each block's bit width, and only
-    for blocks the kernel scores), each output written once."""
+    """(bytes moved, operations, peak operations/s) that this call's data
+    needs: each input read once (planes only up to each block's bit width,
+    and only for blocks the kernel scores), each output written once. The
+    BM25 and codec kernels' operations are f32 ones (integer bit
+    operations not counted); flash attention's are 4 D per live (q, k)
+    pair per head, at the tensor-core peak of its input type."""
     import torch
+    if name == "flash_attention":
+        q, k, v = args[:3]
+        B, Sq, H, D = q.shape
+        pairs = _live_pairs(Sq, k.shape[1], kwargs.get("causal", True),
+                            kwargs.get("window", 0))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 \
+            else F32_OPS_PER_S
+        return nbytes, 4 * D * pairs * B * H, peak
     S = _leading(name, args)
     if name == "pack":
-        return S * 128 * 4 + S * (512 + 4), 0
+        return S * 128 * 4 + S * (512 + 4), 0, F32_OPS_PER_S
     if name == "unpack":
         # the live planes (16 B each) and bw in; the (S, 128) words out
-        return int(args[1].to(torch.int64).sum()) * 16 + S * 4 + S * 512, 0
+        return (int(args[1].to(torch.int64).sum()) * 16 + S * 4 + S * 512,
+                0, F32_OPS_PER_S)
     if name == "bm25_blocks_compact":
         # coff/bw/first x2 less one first, idf, active; the live plane
         # rows (16 B each) of the scored blocks; three (S, 128) outputs
         keep = args[8].to(torch.int64)
         nbytes = S * 7 * 4 + _plane_bytes(args[2], args[6], keep) \
             + S * 128 * 12
-        return nbytes, int(keep.sum()) * 128 * 2
+        return nbytes, int(keep.sum()) * 128 * 2, F32_OPS_PER_S
     act = args[6].to(torch.int64)
     if name == "bm25_blocks":
         keep = act
@@ -685,19 +1026,26 @@ def _work(name, args, kwargs, out):
     nbytes = meta + _plane_bytes(args[1], args[4], keep) + S * 128 * 12
     if name == "bm25_blocks_midgrid":
         nbytes += S * 4                            # skip flags
-    return nbytes, int(keep.sum()) * 128 * ops_per_lane
+    return nbytes, int(keep.sum()) * 128 * ops_per_lane, F32_OPS_PER_S
 
 
 def phase_timing(rec, launches, err) -> tuple:
-    """Each kernel at every leading size S the main path gave it, on the
-    arguments it was given there: held exactly against its plain version,
-    then timed: the kernel by its device time (``_device_ms``, median of
-    21 launches), the plain version by events around the call (median of
-    3; its host launch time included, as its users pay it).
-    A kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are means over the
-    paths' launches (each S weighted by its launch count)."""
+    """Each kernel at every shape key S the main paths gave it, on the
+    arguments it was given there: held against its plain version once
+    more (exactly; flash attention within its tolerance), then timed: the
+    kernel by its device time (``_device_ms``, median of 21 launches),
+    the plain version on the same arguments by events around the call
+    (median of 3; its host launch time included, as its users pay it;
+    flash attention's one batch row after the other, since it holds
+    H * S^2 f32 scores per row) and, for flash attention, the SDPA
+    yardstick on the same arguments (``_flash_yardstick``). A kernel's
+    ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are means over
+    the paths' launches (each S weighted by its launch count), so each
+    pair is held on the same inputs."""
     from repro_torch.kernels.bm25_blockmax import ops as bops
     from repro_torch.kernels.bm25_blockmax import ref as bref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.postings_pack import ops as pops
     from repro_torch.kernels.postings_pack import ref as pref
     calls = {"pack": (pops.pack, pref.pack_ref),
@@ -708,7 +1056,9 @@ def phase_timing(rec, launches, err) -> tuple:
                                      bref.bm25_blocks_midgrid_ref),
              "bm25_blocks_compact": (
                  bops.bm25_blocks_compact,
-                 lambda *a, k1: bref.bm25_blocks_compact_ref(*a, k1))}
+                 lambda *a, k1: bref.bm25_blocks_compact_ref(*a, k1)),
+             "flash_attention": (fops.flash_attention,
+                                 _by_row(fref.attention_ref))}
     sources = {"pack": ("postings_pack.cu", "postings_pack/kernel.py:56"),
                "unpack": ("postings_pack.cu", "postings_pack/kernel.py:80"),
                "bm25_blocks": ("bm25_blockmax.cu",
@@ -716,14 +1066,19 @@ def phase_timing(rec, launches, err) -> tuple:
                "bm25_blocks_midgrid": ("bm25_blockmax.cu",
                                        "bm25_blockmax/kernel.py:294"),
                "bm25_blocks_compact": ("bm25_blockmax.cu",
-                                       "bm25_blockmax/kernel.py:210")}
+                                       "bm25_blockmax/kernel.py:210"),
+               "flash_attention": ("flash_attention.cu",
+                                   "flash_attention/kernel.py:74")}
     line, per_shape = [], {}
     for name, (kern, plain) in calls.items():
         weights = rec.counts[name]
         if sum(weights.values()) != launches[name]:
             raise AssertionError(f"{name}: {sum(weights.values())} calls"
                                  f" recorded, {launches[name]} launches")
+        flash = name == "flash_attention"
         rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        if flash:
+            tot["library_ms"] = 0.0
         by = {"bytes": 0.0, "operations": 0.0}
         for S in sorted(weights):
             a, kw = rec.args[name][S]
@@ -731,16 +1086,24 @@ def phase_timing(rec, launches, err) -> tuple:
             out = list(out) if isinstance(out, (tuple, list)) else [out]
             want = plain(*a, **kw)
             want = list(want) if isinstance(want, (tuple, list)) else [want]
-            err[name] = max(err[name], _exact(f"{name} at S={S}", out, want))
-            nbytes, f32_ops = _work(name, a, kw, out)
+            if flash:
+                err[name] = max(err[name], _flash_err(
+                    out[0], want[0], f"{name} at {S}"))
+            else:
+                err[name] = max(err[name], _exact(f"{name} at S={S}", out,
+                                                  want))
+            nbytes, ops, peak = _work(name, a, kw, out)
+            del out, want
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = f32_ops / F32_OPS_PER_S * 1e3
+            t_ops = ops / peak * 1e3
             row = {"S": S, "launches": weights[S],
                    "ms": _device_ms(lambda: kern(*a, **kw)),
                    "plain_ms": _median_ms(lambda: plain(*a, **kw), n=3,
                                           warm=1),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            if flash:
+                row.update(_flash_yardstick(a, kw))
             rows.append(row)
             w = weights[S] / sum(weights.values())
             for key in tot:
@@ -755,7 +1118,10 @@ def phase_timing(rec, launches, err) -> tuple:
             "launches": int(launches[name]), "max_abs_err": err[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
-            "bound_by": max(by, key=by.get), "library_ms": None})
+            "bound_by": max(by, key=by.get),
+            "library_ms": tot.get("library_ms")})
+        if flash:
+            continue
         common = max(rows, key=lambda r: (r["launches"], r["S"]))
         print(f"[timing] {name}: {line[-1]['ms']:.4f} ms per launch on the "
               f"path (plain {line[-1]['plain_ms']:.3f} ms, bound "
@@ -763,18 +1129,111 @@ def phase_timing(rec, launches, err) -> tuple:
               f" x{common['launches']}: {common['ms']:.4f} ms; largest "
               f"S={rows[-1]['S']} x{rows[-1]['launches']}: "
               f"{rows[-1]['ms']:.4f} ms", flush=True)
+    flash_line = next(e for e in line if e["name"] == "flash_attention")
+    rows = {r["S"]: r for r in per_shape["flash_attention"]}
+    S = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
+    g = rows[(4, S, 0)]
+    loc = next(r for key, r in rows.items() if key[:2] == (4, S) and key[2])
+    print(f"[timing] flash_attention: {flash_line['ms']:.3f} ms per launch "
+          f"on the LM path (plain {flash_line['plain_ms']:.3f} ms, bound "
+          f"{flash_line['bound_ms']:.4f} ms, SDPA at softcap 0 "
+          f"{flash_line['library_ms']:.3f} ms; each the mean over the same "
+          f"launches); at the prefill's B=4 S={S}, each on the same inputs:"
+          f" global {g['ms']:.3f} ms (bound {g['bound_ms']:.4f}, plain "
+          f"{g['plain_ms']:.3f}; at softcap 0 the kernel "
+          f"{g['kernel_softcap0_ms']:.3f} vs SDPA {g['library_ms']:.3f}), "
+          f"local {loc['ms']:.3f} ms (bound {loc['bound_ms']:.4f}, plain "
+          f"{loc['plain_ms']:.3f}; at softcap 0 the kernel "
+          f"{loc['kernel_softcap0_ms']:.3f} vs SDPA {loc['library_ms']:.3f})",
+          flush=True)
     return line, per_shape
+
+
+def _by_row(plain):
+    """The plain flash version over the batch one row after the other
+    (it holds H * Sq * Skv f32 scores per row): the same function on the
+    same inputs."""
+    import torch
+
+    def run(q, k, v, **kw):
+        return torch.cat([plain(q[i:i + 1], k[i:i + 1], v[i:i + 1], **kw)
+                          for i in range(q.shape[0])])
+    return run
+
+
+def _flash_yardstick(a, kw) -> dict:
+    """``F.scaled_dot_product_attention`` on one call's inputs, with
+    ``is_causal`` or, for a sliding-window layer, the band as a boolean
+    mask, beside the kernel at softcap 0 on the same inputs: the same
+    function only at softcap 0 (the port never calls SDPA). The mask and
+    the repeated k, v are made outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v = a
+    window = int(kw["window"])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    band = None
+    if window:
+        # GQA with a mask takes SDPA's math backend; with k, v repeated to
+        # the query heads (h reads kv head h // G) a fused one takes it
+        i = torch.arange(q.shape[1], device=q.device)
+        band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
+                                             < window)
+        G = q.shape[2] // k.shape[2]
+        kt, vt = kt.repeat_interleave(G, 1), vt.repeat_interleave(G, 1)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, is_causal=band is None,
+            enable_gqa=band is None)
+
+    def kern():
+        return fops.flash_attention(q, k, v, causal=True, window=window,
+                                    softcap=0.0)
+    err = _flash_err(kern(), sdpa().transpose(1, 2),
+                     f"kernel vs SDPA at softcap 0, {tuple(q.shape)} "
+                     f"window {window}")
+    return {"library_ms": _device_ms(sdpa), "kernel_softcap0_ms":
+            _device_ms(kern), "max_abs_err_vs_sdpa": err}
+
+
+def _device_profile(fn) -> dict:
+    """``fn`` (ending in a synchronize) run once to warm up, once timed on
+    the host's clock, then once under ``torch.profiler``: the wall ms,
+    the summed device-side ms (kernels, memcpys, memsets: an ATen op's
+    device time is that of the kernels it launched, counted there
+    already), the busy share (device ms / unprofiled wall ms) and the top
+    device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    t0 = time.perf_counter()
+    fn()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    kernels = []
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and dt > 0:
+            kernels.append((dt / 1e3, e.key, e.count))
+    kernels.sort(reverse=True)
+    dev_ms = sum(t for t, _, _ in kernels)
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "device_busy_share": dev_ms / wall_ms if dev_ms else None,
+            "top_device_ops": [{"ms": t, "op": n[:80], "count": c}
+                               for t, n, c in kernels[:12]]}
 
 
 def phase_profile(phases, dev, k: int = 10) -> dict:
     """Where serving time goes: 4 batches of 32 queries on the full
-    tombstone-free snapshot, timed plain, then again under
-    ``torch.profiler``. Device busy share = summed kernel time / the
-    unprofiled wall time of the same batches."""
+    tombstone-free snapshot (``_device_profile``), and the host functions
+    with the most own time under ``cProfile``."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     searcher = phases["refreshed"][0]
     reqs = phases["first"][1]
     q = np.stack([r.terms for r in reqs[:128]]).astype(np.int32)
@@ -785,23 +1244,7 @@ def phase_profile(phases, dev, k: int = 10) -> dict:
             searcher.search_batched(b, k)
         torch.cuda.synchronize()
 
-    serve()
-    t0 = time.perf_counter()
-    serve()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        serve()
-    # device-side events only (kernels, memcpys, memsets): an ATen op's
-    # device time is that of the kernels it launched, counted there already
-    kernels = []
-    for e in prof.key_averages():
-        dt = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if e.device_type == DeviceType.CUDA and dt > 0:
-            kernels.append((dt / 1e3, e.key, e.count))
-    kernels.sort(reverse=True)
-    dev_ms = sum(t for t, _, _ in kernels)
+    out = {"batches": len(batches), **_device_profile(serve)}
     # the host side of the same batches: the functions with the most own
     # time (cProfile inflates Python-heavy code; read it as an ordering)
     prof_host = cProfile.Profile()
@@ -810,13 +1253,9 @@ def phase_profile(phases, dev, k: int = 10) -> dict:
     host = sorted(((v[2] * 1e3, v[3] * 1e3,
                     f"{Path(f[0]).name}:{f[1]}:{f[2]}")
                    for f, v in st.stats.items()), reverse=True)
-    return {"batches": len(batches), "wall_ms": wall_ms,
-            "device_ms": dev_ms,
-            "device_busy_share": dev_ms / wall_ms if dev_ms else None,
-            "top_device_ops": [{"ms": t, "op": n[:80], "count": c}
-                               for t, n, c in kernels[:12]],
-            "top_host_self_ms": [{"self_ms": t, "cum_ms": c, "fn": n}
-                                 for t, c, n in host[:15]]}
+    out["top_host_self_ms"] = [{"self_ms": t, "cum_ms": c, "fn": n}
+                               for t, c, n in host[:15]]
+    return out
 
 
 def main(argv=None) -> int:
@@ -858,13 +1297,49 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    t0 = time.perf_counter()
-    err = phase_parity(dev)
-    print(f"[parity] every kernel equals its plain version exactly "
-          f"({time.perf_counter() - t0:.1f}s): {err}", flush=True)
+    # f32 matmuls of the LM's reference checks run in full f32 (the
+    # defaults, set here so no caller's setting leaks in)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    phases, report, launches, rec = phase_slice(args, dev)
+    err = phase_parity(dev)
+    print(f"[parity] every retrieval kernel equals its plain version "
+          f"exactly ({time.perf_counter() - t0:.1f}s): {err}", flush=True)
+    t0 = time.perf_counter()
+    flash_err = phase_flash_parity(dev)
+    err["flash_attention"] = max(flash_err.values())
+    print(f"[parity] flash_attention equals its plain version within "
+          f"{FLASH_TOL} (abs and rel) on the JAX kernel test's sweep, D in "
+          f"{{8, 16, 160}}, D 256 over 1100 tokens with window 300 and rows"
+          f" with nothing to attend; max abs err "
+          f"{flash_err} ({time.perf_counter() - t0:.1f}s)", flush=True)
+
+    # the LM path first, with the card to itself; its state is freed
+    # before the retrieval paths
+    rec = ShapeRecorder()
+    t0 = time.perf_counter()
+    lm, lm_launches, cfg, params = phase_lm(dev, card, rec)
+    lm["lm_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm["checks"] = phase_lm_checks(dev, cfg, params, rec)
+    checks_lm = {k: v for k, v in lm["checks"].items()
+                 if not k.startswith("profile")}
+    print(f"[lm-checks] {checks_lm} ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
+    for name in ("decode", "prefill"):
+        pr = lm["checks"][f"profile_{name}_b1"]
+        print(f"[lm-profile] on {card}: one {name} at batch 1, length "
+              f"{LM_FULL_CHECK_LEN}: wall {pr['wall_ms']:.2f} ms, device "
+              f"busy {pr['device_ms']:.2f} ms (share "
+              f"{pr['device_busy_share'] or float('nan'):.3f}); top: "
+              f"{pr['top_device_ops'][:4]}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phases, report, launches = phase_slice(args, dev, rec)
     report["slice_s"] = time.perf_counter() - t0
     print(f"[slice] {report['docs']} docs, {report['segments1']} segments "
           f"at first refresh; launches {launches} ({report['slice_s']:.1f}s)",
@@ -913,7 +1388,8 @@ def main(argv=None) -> int:
                                         upd_ids)
     durable["durable_s"] = time.perf_counter() - t0
     print(f"[durable] ({durable['durable_s']:.1f}s)", flush=True)
-    launches = {n: launches[n] + d_launches[n] for n in launches}
+    launches = {n: launches[n] + d_launches[n] + lm_launches[n]
+                for n in launches}
 
     t0 = time.perf_counter()
     line, per_shape = phase_timing(rec, launches, err)
@@ -926,7 +1402,7 @@ def main(argv=None) -> int:
         "build_s": build_s, "ptxas": {k: v[1] for k, v in
                                       _build.BUILD_LOG.items()},
         "report": report, "checks": checks, "profile": prof,
-        "durable": durable,
+        "durable": durable, "lm": lm,
         "kernels": line, "kernel_shapes": per_shape,
         "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(json.dumps({"kernels": line}))

@@ -1,6 +1,8 @@
-"""Config of the paper's own pipeline, copied from the JAX package's
-``repro/configs/base.py`` so the port imports nothing of it. The LM,
-recsys and GNN configs are not ported yet (``ROADMAP.md``)."""
+"""Configs copied from the JAX package's ``repro/configs/base.py`` so the
+port imports nothing of it: the paper's own pipeline (``EnvelopeConfig``)
+and the decoder-only LM (``TransformerConfig``, served by
+``repro_torch.launch.serve --mode lm``). The recsys and GNN configs are
+not ported yet (``ROADMAP.md``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -79,3 +81,77 @@ class EnvelopeConfig:
     # all_to_all (EXPERIMENTS.md §Perf — the paper's compression insight
     # applied to the shuffle stage)
     shuffle_payload: str = "raw"
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    """Decoder-only LM backbone (dense or MoE), GQA + RoPE.
+
+    Feature flags cover the assigned archs: qk_norm (qwen3), logit softcaps +
+    local/global alternation (gemma2), MoE top-k routing (moonshot, llama4),
+    early-fusion stub (llama4). The port serves the dense archs; ``moe`` and
+    ``fused_patches`` are kept so the fields match the JAX package's.
+    """
+
+    name: str
+    family: str = "lm"
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    # --- MoE ---
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_loss: float = 0.01
+    moe_impl: str = "pjit"
+    # --- attention flavour ---
+    qk_norm: bool = False
+    attn_softcap: float = 0.0  # 0 disables
+    final_softcap: float = 0.0
+    sliding_window: int = 0  # 0 = full attention
+    layer_pattern: str = "global"  # "global" | "local_global" (gemma2)
+    rope_theta: float = 10_000.0
+    rotary_pct: float = 1.0
+    sandwich_norm: bool = False  # gemma2 post-norms
+    tie_embeddings: bool = True
+    # --- early-fusion multimodal stub (llama4) ---
+    fused_patches: int = 0
+    patch_dim: int = 0
+    # --- numerics ---
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    norm_eps: float = 1e-6
+    # --- training (kept for field parity; the port serves only) ---
+    attn_block_q: int = 512
+    attn_block_kv: int = 1024
+    remat: bool = True
+    scan_layers: bool = True
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count."""
+        d, l = self.d_model, self.n_layers
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.moe:
+            ff = 3 * d * self.d_ff_expert * (self.n_experts
+                                             + self.n_shared_experts)
+            ff += d * self.n_experts  # router
+        else:
+            ff = 3 * d * self.d_ff
+        norms = 2 * d * (2 if self.sandwich_norm else 1)
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return l * (attn + ff + norms) + emb + d

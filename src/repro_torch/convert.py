@@ -1,7 +1,9 @@
 """Carry state of the JAX package over to the port, so both compute on
 identical state: a ``repro`` ``Segment`` becomes a ``repro_torch``
-``Segment``, and a ``repro`` ``BlockMaxIndex`` (either layout: packed
-planes, or the compact layout's plane rows) becomes the port's.
+``Segment``, a ``repro`` ``BlockMaxIndex`` (either layout: packed
+planes, or the compact layout's plane rows) becomes the port's, and an LM
+parameter tree (``repro.models.transformer.init_params``) becomes the
+port's (``lm_params_from_repro``).
 
 The inputs are duck-typed: anything with the right attributes, whose
 arrays convert with ``numpy.asarray``. Nothing of the JAX package is
@@ -77,3 +79,20 @@ def block_index_from_repro(index, device="cpu") -> BlockMaxIndex:
         last_doc=(None if index.last_doc is None
                   else _arr(index.last_doc, np.int32, device)),
         **planes)
+
+
+def lm_params_from_repro(params, device="cpu") -> dict:
+    """The port's LM parameters from a JAX parameter tree: the same nested
+    dicts (``layers`` stacked over layers, ``(L, ...)``), every leaf a
+    tensor on ``device`` with the leaf's values and dtype. Leaves may be
+    JAX or numpy arrays (or f32 CPU tensors: the port's own tree moves to
+    another device); bfloat16 array leaves are carried through float32,
+    which holds them exactly."""
+    device = torch.device(device)
+    if isinstance(params, dict):
+        return {k: lm_params_from_repro(v, device) for k, v in params.items()}
+    a = np.asarray(params)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)

@@ -13,7 +13,8 @@ in ``.gitignore``; ``REPRO_TORCH_BUILD_DIR`` overrides it), named by a
 hash of the source and the flags, so an edited source never loads a stale
 library. Flags: ``sm_90a`` only, ``-O3``, no ``--use_fast_math``, and
 ``--fmad=false`` — bit-identity with the plain versions needs IEEE
-``*``, ``+`` and ``/`` without contraction.
+``*``, ``+`` and ``/`` without contraction (the flash-attention kernel,
+held to a tolerance, writes its fused multiply-adds as ``fmaf``).
 
 ``LAUNCHES`` counts, per kernel op, the times a wrapper launched its
 kernel (the CPU path never touches it); ``chip_smoke.py`` zeroes it
@@ -31,7 +32,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("postings_pack", "bm25_blockmax")
+SOURCES = ("postings_pack", "bm25_blockmax", "flash_attention")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "--ptxas-options=-v", "-shared", "-Xcompiler",
               "-fPIC")
@@ -52,10 +53,15 @@ SIGNATURES = {
         "bm25_compact": (_P, _L, _P, _P, _P, _P, _L, _P, _P, _P, _P, _F,
                          _P, _P, _P, _L, _P),
     },
+    "flash_attention": {
+        "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _F, _F, _I, _P),
+    },
 }
 
 LAUNCHES = {"pack": 0, "unpack": 0, "bm25_blocks": 0,
-            "bm25_blocks_midgrid": 0, "bm25_blocks_compact": 0}
+            "bm25_blocks_midgrid": 0, "bm25_blocks_compact": 0,
+            "flash_attention": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

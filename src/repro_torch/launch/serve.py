@@ -1,15 +1,26 @@
-"""Retrieval serving driver of the port: index, refresh, serve BM25 top-k
-through the fixed-slot ``QueryScheduler``, keep indexing, refresh and
-serve again, then delete and update served docs, refresh and serve once
-more — asserting that no tombstoned doc surfaces.
+"""Serving entry point of the port, in two modes.
+
+Retrieval (the default): index, refresh, serve BM25 top-k through the
+fixed-slot ``QueryScheduler``, keep indexing, refresh and serve again,
+then delete and update served docs, refresh and serve once more —
+asserting that no tombstoned doc surfaces.
+
+LM (``--mode lm``): batched prefill of ``--requests`` random prompts of
+``--prompt-len`` tokens, then ``--gen`` greedy tokens decoded over the KV
+cache (``generate``), on seeded random weights of ``--arch`` (the JAX
+launcher's LM mode; the port keeps retrieval as its default mode).
 
   python -m repro_torch.launch.serve                       # smoke, on CUDA
   python -m repro_torch.launch.serve --device cpu          # plain PyTorch
   python -m repro_torch.launch.serve --device cpu --index-dir DIR
   python -m repro_torch.launch.serve --config full --docs 1048576 \\
       --batch-docs 16384 --requests 1024
+  python -m repro_torch.launch.serve --mode lm --device cpu   # gemma2 smoke
+  python -m repro_torch.launch.serve --mode lm --config full \\
+      --prompt-len 8192 --gen 16                # gemma2-9b at full width
 
-``--config smoke`` is the SMOKE pipeline over the TINY corpus (the JAX
+In retrieval mode, ``--config smoke`` is the SMOKE pipeline over the
+TINY corpus (the JAX
 package's ``launch/serve.py --mode retrieval``); ``--config full`` is the
 full ``lucene_envelope`` CONFIG over a corpus with ClueWeb09b's law
 (``CW09B_SMALL``) scaled to ``--docs``. The pruned phases without
@@ -34,10 +45,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import lucene_envelope
+from repro_torch.configs.registry import get_arch
 from repro_torch.core.indexer import Indexer
 from repro_torch.core.searcher import ReaderCache
 from repro_torch.data.corpus import CW09B_SMALL, TINY, SyntheticCorpus
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer as TF
 from repro_torch.serving.query_scheduler import QueryRequest, QueryScheduler
 from repro_torch.storage import FSDirectory, open_searcher
 
@@ -71,6 +84,68 @@ def generate_batches(corpus, n_batches: int, batch_docs: int,
     with ThreadPoolExecutor(max(1, min(workers, n_batches))) as pool:
         return list(pool.map(lambda i: corpus.batch(i, batch_docs),
                              range(n_batches)))
+
+
+def generate(cfg, params, prompts, gen_tokens: int, mesh=None,
+             stats: dict = None):
+    """prompts: (B, S) token ids, right-padded with 0; returns (B, gen)
+    greedy tokens. Prefill runs over the whole padded batch and takes its
+    logits at position S - 1; decode then appends at each row's own length
+    ``(prompts > 0).sum(1)``, as the JAX launcher's ``generate`` does.
+    ``stats``, if given, receives ``prefill_s`` and ``decode_s`` (wall
+    time, synchronized on the device) and ``decode_steps``."""
+    device = prompts.device
+    B, S = prompts.shape
+    t0 = time.perf_counter()
+    caches, logits = TF.prefill(params, prompts, cfg, pad_to=S + gen_tokens,
+                                mesh=mesh)
+    lengths = (prompts > 0).sum(dim=1)
+    out = [torch.argmax(logits, dim=-1)]
+    _sync(device)
+    t1 = time.perf_counter()
+    for i in range(gen_tokens - 1):
+        caches, logits = TF.decode_step(params, caches, lengths + i, out[-1],
+                                        cfg, mesh=mesh)
+        out.append(torch.argmax(logits, dim=-1))
+    toks = torch.stack(out, dim=1)
+    _sync(device)
+    if stats is not None:
+        stats.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1,
+                     decode_steps=gen_tokens - 1)
+    return toks
+
+
+def serve_lm(args):
+    """Greedy generation for ``--requests`` random prompts on random
+    weights, both drawn from seed 0 (the JAX launcher's fixed
+    ``PRNGKey(0)``). Returns a dict: cfg, params, tokens and report."""
+    device = resolve_device(args.device)
+    entry = get_arch(args.arch)
+    cfg = entry.smoke if args.config == "smoke" else entry.config
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    params = TF.init_params(cfg, gen)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (args.requests, args.prompt_len))).to(device)
+    stats = {}
+    toks = generate(cfg, params, prompts, args.gen, stats=stats)
+    dt = stats["prefill_s"] + stats["decode_s"]
+    report = dict(arch=cfg.name, device=str(device), init_s=init_s,
+                  requests=args.requests, prompt_len=args.prompt_len,
+                  gen=args.gen, tok_per_s=args.requests * args.gen / dt,
+                  decode_ms_per_step=(stats["decode_s"] * 1e3
+                                      / max(stats["decode_steps"], 1)),
+                  **stats)
+    print(f"arch={cfg.name} served {args.requests} requests x "
+          f"{args.gen} tokens ({args.prompt_len}-token prompts) in "
+          f"{dt:.2f}s ({report['tok_per_s']:.1f} tok/s; prefill "
+          f"{stats['prefill_s']:.3f}s, decode "
+          f"{report['decode_ms_per_step']:.2f} ms/step)")
+    print("sample generations:", toks[:2, :8].cpu().numpy())
+    return dict(cfg=cfg, params=params, tokens=toks, report=report)
 
 
 def serve_retrieval(args):
@@ -228,10 +303,20 @@ def serve_retrieval(args):
 
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mode", choices=("retrieval", "lm"),
+                    default="retrieval")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a CUDA device) or "
                          "cpu for the plain PyTorch path")
-    ap.add_argument("--config", choices=("smoke", "full"), default="smoke")
+    ap.add_argument("--config", choices=("smoke", "full"), default="smoke",
+                    help="smoke: the reduced config; full: the published "
+                         "widths (lucene_envelope CONFIG, or --arch's)")
+    ap.add_argument("--arch", default="gemma2-9b",
+                    help="lm mode: the architecture (configs/registry.py)")
+    ap.add_argument("--prompt-len", type=int, default=64,
+                    help="lm mode: tokens per prompt")
+    ap.add_argument("--gen", type=int, default=16,
+                    help="lm mode: tokens generated per request")
     ap.add_argument("--docs", type=int, default=256,
                     help="docs to index (two halves, refresh between)")
     ap.add_argument("--batch-docs", type=int, default=32)
@@ -252,7 +337,10 @@ def build_parser():
 
 
 def main(argv=None):
-    return serve_retrieval(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.mode == "lm":
+        return serve_lm(args)
+    return serve_retrieval(args)
 
 
 if __name__ == "__main__":

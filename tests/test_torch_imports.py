@@ -24,7 +24,11 @@ KERNEL_CALLS = {"pack", "unpack", "bm25_blocks", "bm25_blocks_partials",
                 "_enc_stream", "_dec_stream",
                 "encode_segment", "decode_segment", "write_segment",
                 "read_segment", "open_latest", "open_latest_degraded",
-                "open_searcher", "_open_latest_full", "commit"}
+                "open_searcher", "_open_latest_full", "commit",
+                # the flash-attention op, its C entry point, the model's
+                # attention call and the LM entry points above it
+                "flash_attention", "flash_attention_fwd", "_attention",
+                "prefill", "generate", "serve_lm"}
 
 
 def _modules():
