@@ -8,31 +8,38 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 
 1. device   — the card's ``name, power.limit`` (nvidia-smi);
 2. build    — compile the hand-written kernels from ``src/repro_torch/
-              kernels/csrc`` (one nvcc per source, in parallel);
+              kernels/csrc`` (one nvcc per source, in parallel); the
+              tensor-core flash kernel's SASS must hold HGMMA (wgmma)
+              instructions and its D = 256 instantiation must not spill;
 3. parity   — each kernel against its plain PyTorch version on the card:
               exactly, pack/unpack on random words with bw 0 and 32 edge
               blocks, bm25_blocks with and without partials, midgrid at
               every pow2 bucket up to 4096 blocks for k in {1, 10, 32} and
               128 query rows, bm25_blocks_compact at S in {1, 37, 4099}
               with bw-0/bw-32 blocks and the rows array's last block; and
-              flash_attention within the JAX kernel test's tolerances
-              (2e-5 in f32, 2e-2 in bf16) on that test's sweep, D in {8,
-              16, 160}, D 256 over 1100 tokens with a 300-token window,
-              and rows with nothing to attend;
+              both flash kernels within the JAX kernel test's tolerances
+              (2e-5 in f32, the SIMT kernel; 2e-2 in bf16) on that test's
+              sweep, D in {8, 16, 160}, D 256 over 1100 tokens with a
+              300-token window, the tensor-core kernel's sweep (D in {64,
+              128, 160, 256}, ragged lengths, windows at and across tile
+              edges, softcap 0 and 50, G in {1, 2, 8}) and rows with
+              nothing to attend;
 4. lm       — the LM path, with the card to itself: ``launch.serve --mode
               lm`` with gemma2-9b at full width and depth (42 layers,
               seeded random fp32 weights), 4 requests of 8192 tokens, 16
               generated; then ``DecodeScheduler`` with 2 slots serving 3
               ragged requests (8192, 4500, 300 tokens). Prefill s, decode
-              ms per step, tok/s, peak device memory; the flash kernel
-              must launch exactly once per layer per prefill;
-5. lm-checks — the kernel against its plain version on the q, k, v the
-              prefill gave one local and one global layer (one batch row,
-              in bf16 and cast to f32); at full width, prefill over t + 1
-              tokens against prefill over t then one decode step, in bf16
-              and f32, with two planted faults that must exceed the
-              limit; at SMOKE width, the same weights on the card and on
-              the CPU. The LM's state is then freed;
+              ms per step, tok/s, peak device memory; the tensor-core
+              flash kernel must launch exactly once per layer per prefill,
+              the SIMT one never;
+5. lm-checks — the kernels against their plain version on the q, k, v
+              the prefill gave one local and one global layer (one batch
+              row, in bf16 and cast to f32); at full width, prefill over
+              t + 1 tokens against prefill over t then one decode step,
+              in bf16 and f32, with two planted faults that must exceed
+              the limit (the two f32 prefills are the f32 path's counted
+              run: 84 SIMT launches); at SMOKE width, the same weights on
+              the card and on the CPU. The LM's state is then freed;
 6. slice    — the retrieval main path through ``repro_torch.launch.serve``
               with the full ``lucene_envelope`` CONFIG over a corpus with
               ClueWeb09b's law scaled to ``--docs // SLICE_CUT``: index,
@@ -74,12 +81,13 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               for them), each averaged over the paths' launches. Flash
               attention's yardstick, on the same inputs and averaged the
               same way: SDPA (causal, GQA, the window as a mask) at
-              softcap 0, beside the kernel at softcap 0.
+              softcap 0, beside the kernel at softcap 0; beside the
+              tensor-core kernel, the SIMT kernel on the same inputs.
 
-In every counted run (the LM path, the slice, the durable path's
-indexing + recovery + serving and its WAL run) the launch counts are
-zeroed just before and read just after, never around a comparison, and
-every kernel of the path must have launched.
+In every counted run (the LM path, the f32 LM prefills, the slice, the
+durable path's indexing + recovery + serving and its WAL run) the launch
+counts are zeroed just before and read just after, never around a
+comparison, and every kernel of the path must have launched.
 
 The durable path runs at ``--docs`` (2^20 by default) and may not be cut;
 the in-memory slice runs at ``--docs // SLICE_CUT``: at 2^20 docs each,
@@ -339,48 +347,110 @@ def _flash_err(got, want, what: str) -> float:
 
 
 def phase_flash_parity(dev) -> dict:
-    """The flash kernel against its plain version on random inputs: the
-    JAX kernel test's sweep (``tests/test_kernels_flash.py``: four shapes,
-    four window/softcap pairs, non-causal with Sq != Skv) in f32 and
-    bf16, plus D in {8, 16, 160}, D = 256 over 1100 tokens with a
-    window of 300, and rows with nothing to attend. Returns
-    the max abs error per dtype."""
+    """Both flash kernels against their plain version on random inputs,
+    each call through the op, which picks the kernel by ``ops.route``:
+    1. the JAX kernel test's sweep (``tests/test_kernels_flash.py``: four
+       shapes, four window/softcap pairs, non-causal with Sq != Skv) in f32
+       and bf16, plus D in {8, 16, 160}, D = 256 over 1100 tokens with a
+       window of 300, and rows with nothing to attend;
+    2. the tensor-core kernel's sweep, bf16: D in {64, 128, 160, 256};
+       lengths that are not a multiple of 64 or 128; windows at and
+       across the 64- and 128-row tile edges; softcap 0 and 50; G = 1, 2
+       and 8; non-causal cross lengths; rows with nothing to attend.
+    bf16 at D in {64, 128, 160, 256} must take the tensor-core kernel,
+    f32 and bf16 at D in {8, 16} the SIMT one. Returns the max abs error
+    per kernel (the SIMT one's per dtype too)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [((1, 128, 128, 4, 4, 64), {}), ((2, 256, 256, 8, 2, 64), {}),
-             ((1, 192, 320, 4, 2, 128), {}), ((1, 128, 128, 2, 1, 256), {}),
-             *[((1, 128, 128, 4, 2, 64), dict(window=w, softcap=c))
-               for w, c in ((0, 0.0), (64, 0.0), (0, 50.0), (32, 30.0))],
-             ((1, 64, 96, 2, 2, 64), dict(causal=False)),
-             ((2, 100, 100, 4, 2, 8), dict(window=24, softcap=50.0)),
-             ((2, 100, 100, 4, 2, 16), dict(window=40)),
-             ((2, 300, 300, 4, 2, 160), dict(window=100, softcap=50.0)),
-             # gemma2's D, a ragged tail and a window that starts inside
-             # a kv tile: the band's tile skipping at its edges
-             ((1, 1100, 1100, 4, 2, 256), dict(window=300, softcap=50.0)),
-             # causal, window 4, Sq > Skv: rows 19.. attend to nothing
-             ((1, 64, 16, 2, 1, 64), dict(window=4))]
-    err = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    jax_sweep = [
+        ((1, 128, 128, 4, 4, 64), {}), ((2, 256, 256, 8, 2, 64), {}),
+        ((1, 192, 320, 4, 2, 128), {}), ((1, 128, 128, 2, 1, 256), {}),
+        *[((1, 128, 128, 4, 2, 64), dict(window=w, softcap=c))
+          for w, c in ((0, 0.0), (64, 0.0), (0, 50.0), (32, 30.0))],
+        ((1, 64, 96, 2, 2, 64), dict(causal=False)),
+        ((2, 100, 100, 4, 2, 8), dict(window=24, softcap=50.0)),
+        ((2, 100, 100, 4, 2, 16), dict(window=40)),
+        ((2, 300, 300, 4, 2, 160), dict(window=100, softcap=50.0)),
+        # gemma2's D, a ragged tail and a window that starts inside a kv
+        # tile: the band's tile skipping at its edges
+        ((1, 1100, 1100, 4, 2, 256), dict(window=300, softcap=50.0))]
+    # causal, window 4, Sq > Skv: rows 19.. attend to nothing
+    empty_rows = dict(window=4)
+    tc_sweep = [((B, Sq, Skv, H, KVH, D), kw)
+                for D in (64, 128, 160, 256)
+                for (B, Sq, Skv, H, KVH), kw in (
+                    ((1, 300, 300, 2, 2), dict(window=64)),
+                    ((2, 100, 100, 4, 2), dict(softcap=50.0)),
+                    ((1, 1100, 1100, 8, 1), dict(window=129, softcap=50.0)),
+                    ((1, 257, 257, 4, 4), dict(window=128)),
+                    ((1, 700, 700, 8, 1), dict(window=63)),
+                    ((1, 192, 320, 4, 2), dict(causal=False, softcap=50.0)),
+                    ((1, 64, 16, 2, 1), empty_rows))]
+    sweeps = [(torch.float32, jax_sweep + [((1, 64, 16, 2, 1, 64),
+                                            empty_rows)]),
+              (torch.bfloat16, jax_sweep + tc_sweep + [((1, 64, 16, 2, 1, 16),
+                                                        empty_rows)])]
+    err = {"flash_attention_tc": 0.0, "flash_attention/float32": 0.0,
+           "flash_attention/bfloat16": 0.0}
+    for dtype, cases in sweeps:
         name = str(dtype).removeprefix("torch.")
-        err[name] = 0.0
         for (B, Sq, Skv, H, KVH, D), kw in cases:
             q, k, v = (torch.randn(shape, generator=gen, device=dev
                                    ).to(dtype)
                        for shape in ((B, Sq, H, D), (B, Skv, KVH, D),
                                      (B, Skv, KVH, D)))
+            route = fops.route(dtype, D)
+            want_tc = dtype == torch.bfloat16 and D in (64, 128, 160, 256)
+            if (route == "flash_attention_tc") != want_tc:
+                raise AssertionError(f"flash {name} D={D} took {route}")
             got = fops.flash_attention(q, k, v, **kw)
             want = fref.attention_ref(q, k, v, **kw)
-            err[name] = max(err[name], _flash_err(
-                got, want, f"flash {name} q {tuple(q.shape)} k "
+            key = route if want_tc else f"{route}/{name}"
+            err[key] = max(err[key], _flash_err(
+                got, want, f"flash {route} {name} q {tuple(q.shape)} k "
                            f"{tuple(k.shape)} {kw}"))
-        if not bool((got[:, 19:] == 0).all()):
-            raise AssertionError("flash: a row with nothing to attend is "
-                                 "not 0")
+            if kw is empty_rows and not bool((got[:, 19:] == 0).all()):
+                raise AssertionError(f"flash {route} {name} D={D}: a row "
+                                     f"with nothing to attend is not 0")
     torch.cuda.synchronize()
     return err
+
+
+def tc_build_check() -> dict:
+    """The tensor-core kernel's library as built: HGMMA (wgmma) in its
+    SASS (``cuobjdump --dump-sass``), and each instantiation's spill bytes
+    and registers from the ``ptxas -v`` report. Fails without HGMMA or if
+    the LM path's instantiation (D = 256, 64-row kv tiles) spills."""
+    import re
+    import subprocess
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(_build._target("flash_attention_tc"))],
+                          capture_output=True, text=True, check=True).stdout
+    out = {"hgmma": sass.count("HGMMA"), "instantiations": {}}
+    cur = None
+    for line in _build.build_report("flash_attention_tc").splitlines():
+        m = re.search(r"Function properties for \S*flash_tc_kernelILi(\d+)"
+                      r"ELi(\d+)", line)
+        if m:
+            cur = out["instantiations"].setdefault(f"D{m[1]}_BN{m[2]}", {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if cur is not None and m:
+            cur["spill_bytes"] = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if cur is not None and m:
+            cur["registers"] = int(m[1])
+            cur = None
+    path = out["instantiations"].get("D256_BN64", {})
+    if out["hgmma"] == 0 or path.get("spill_bytes") != 0:
+        raise AssertionError(f"flash_attention_tc: no HGMMA in the SASS or "
+                             f"the D = 256 instantiation spills: {out}")
+    return out
 
 
 def phase_lm(dev, card, rec) -> tuple:
@@ -398,7 +468,7 @@ def phase_lm(dev, card, rec) -> tuple:
     with rec:
         _build.reset_launches()
         out = serve.main([*LM_ARGV, "--device", str(dev)])
-        gen_launches = _build.LAUNCHES["flash_attention"]
+        gen_launches = _build.LAUNCHES["flash_attention_tc"]
         cfg, params, toks = out["cfg"], out["params"], out["tokens"]
         rep = dict(out["report"])
         rep["generate_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -423,14 +493,18 @@ def phase_lm(dev, card, rec) -> tuple:
     rep["sched_tok_per_s"] = rep["sched_tokens"] / rep["sched_s"]
     n_layers = cfg.n_layers
     if gen_launches != n_layers:
-        raise AssertionError(f"generate's prefill launched the flash kernel "
-                             f"{gen_launches} times, not once per layer "
-                             f"({n_layers})")
-    if launches["flash_attention"] != n_layers * (1 + len(SCHED_PROMPTS)):
-        raise AssertionError(f"the scheduler's prefills launched the flash "
-                             f"kernel {launches['flash_attention'] - n_layers}"
-                             f" times, not {n_layers} per admitted request")
-    _require(launches, ("flash_attention",), "the LM path")
+        raise AssertionError(f"generate's prefill launched the tensor-core "
+                             f"flash kernel {gen_launches} times, not once "
+                             f"per layer ({n_layers})")
+    tc = launches["flash_attention_tc"]
+    if tc != n_layers * (1 + len(SCHED_PROMPTS)):
+        raise AssertionError(f"the scheduler's prefills launched the "
+                             f"tensor-core flash kernel {tc - n_layers} "
+                             f"times, not {n_layers} per admitted request")
+    if launches["flash_attention"]:
+        raise AssertionError(f"the bf16 LM path launched the SIMT flash "
+                             f"kernel {launches['flash_attention']} times")
+    _require(launches, ("flash_attention_tc",), "the LM path")
     if toks.shape != (4, 16) or not bool(((toks >= 0)
                                           & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"generate returned malformed tokens {toks}")
@@ -462,38 +536,44 @@ def _rms(x) -> float:
 
 
 def phase_lm_checks(dev, cfg, params, rec) -> dict:
-    """Three checks of the LM path (not counted):
-    1. the kernel against its plain version on the q, k, v the prefill
+    """Three checks of the LM path:
+    1. the kernels against their plain version on the q, k, v the prefill
        gave one local and one global layer, at one batch row (the plain
-       version holds H * S^2 f32 scores): as they came, in bf16, and cast
-       to f32, where only the order of summation differs (FLASH_TOL);
+       version holds H * S^2 f32 scores): as they came, in bf16 (the
+       tensor-core kernel), and cast to f32 (the SIMT kernel), where only
+       the order of summation differs (FLASH_TOL);
     2. at full width, the logits of a prefill over t + 1 tokens against a
        prefill over t tokens then one ``decode_step`` (t = 4500, past the
        window), at the config's bf16 and at f32 compute. In bf16 the two
-       paths round at other points (the kernel keeps p in f32, decode casts
-       it to bf16; other matmul shapes) across 42 layers; in f32 only the
-       order of summation differs. Their difference must stay within
-       LM_FULL_CHECK_RMS of the logits' RMS and their argmax agree unless
-       the top-2 margin is within twice the largest difference. Two
-       planted faults, read on the same cache each run, must exceed that
-       limit: decode at ``lengths - 1`` (a wrong position and cache slot)
-       and decode with the window off (a wrong mask);
+       paths round at other points (other matmul shapes and orders of
+       summation) across 42 layers; in f32 only the order of summation
+       differs. The two f32 prefills are the f32 LM path's counted run
+       (launch counts zeroed before, read after, ``rec`` recording): each
+       of their 84 attention calls must take the SIMT kernel. Their
+       difference must stay within LM_FULL_CHECK_RMS of the logits' RMS
+       and their argmax agree unless the top-2 margin is within twice the
+       largest difference. Two planted faults, read on the same cache each
+       run, must exceed that limit: decode at ``lengths - 1`` (a wrong
+       position and cache slot) and decode with the window off (a wrong
+       mask);
     3. at SMOKE width, gemma2, qwen3 and stablelm with the same weights on
        the card and on the CPU: prefill logits and 3 teacher-forced decode
        steps within LM_SMOKE_TOL (the CPU tests' tolerances against the
        JAX package), in f32 and at the configs' bf16."""
+    import contextlib
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.convert import lm_params_from_repro
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.models import transformer as TF
     out = {}
     S = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
     for window in (cfg.sliding_window, 0):
-        a, kw = rec.args["flash_attention"][(4, S, window)]
+        a, kw = rec.args["flash_attention_tc"][(4, S, window)]
         for dtype in (torch.bfloat16, torch.float32):
             row = [t[:1].to(dtype) for t in a]
             name = str(dtype).removeprefix("torch.")
@@ -512,8 +592,19 @@ def phase_lm_checks(dev, cfg, params, rec) -> dict:
     no_window = dataclasses.replace(cfg, sliding_window=0)
     for dtype in ("bfloat16", "float32"):
         c = dataclasses.replace(cfg, compute_dtype=dtype)
-        _, want = TF.prefill(params, toks, c)
-        caches, _ = TF.prefill(params, toks[:, :t], c, pad_to=t + 1)
+        counted = dtype == "float32"
+        with rec if counted else contextlib.nullcontext():
+            _build.reset_launches()
+            _, want = TF.prefill(params, toks, c)
+            caches, _ = TF.prefill(params, toks[:, :t], c, pad_to=t + 1)
+            launches = dict(_build.LAUNCHES)
+        if counted:
+            out["f32_launches"] = launches
+            if launches["flash_attention"] != 2 * cfg.n_layers \
+                    or launches["flash_attention_tc"]:
+                raise AssertionError(f"the f32 prefills' attention took "
+                                     f"other kernels than the SIMT one "
+                                     f"once per layer: {launches}")
         # sound first, then the window off (both write slot t alike), then
         # the wrong slot t - 1 last: the three share one cache
         _, got = TF.decode_step(params, caches, lengths, toks[:, t], c)
@@ -704,7 +795,7 @@ def _leading(name: str, args, kwargs=None):
     """A kernel call's shape key S: blocks (the compact op's first argument
     is the whole rows array; its blocks are its offsets); for flash
     attention (batch, q length, window)."""
-    if name == "flash_attention":
+    if name.startswith("flash_attention"):
         return (int(args[0].shape[0]), int(args[0].shape[1]),
                 int(kwargs.get("window", 0)))
     return int(args[1 if name == "bm25_blocks_compact" else 0].shape[0])
@@ -716,7 +807,8 @@ class ShapeRecorder:
     shape key S (blocks; for flash attention batch, length and window) and
     keeps a copy of the first call's arguments at each S, so
     ``phase_timing`` can time every kernel on the inputs the paths gave
-    it. The launch counts stay the wrappers' own."""
+    it. Flash attention's calls go under the kernel ``ops.route`` picks
+    for them. The launch counts stay the wrappers' own."""
 
     def __init__(self):
         import collections
@@ -731,13 +823,16 @@ class ShapeRecorder:
                        (query, "bm25_blocks", "bm25_blocks"),
                        (query, "bm25_blocks_midgrid", "bm25_blocks_midgrid"),
                        (query, "bm25_blocks_compact", "bm25_blocks_compact"),
-                       (transformer, "flash_attention", "flash_attention")]
+                       (transformer, "flash_attention", "flash")]
         self._orig = [getattr(m, a) for m, a, _ in self._sites]
 
-    def _wrap(self, fn, name):
+    def _wrap(self, fn, site):
         import torch
+        from repro_torch.kernels.flash_attention.ops import route
 
         def recorded(*args, **kwargs):
+            name = site if site != "flash" else route(args[0].dtype,
+                                                      args[0].shape[-1])
             S = _leading(name, args, kwargs)
             self.counts[name][S] += 1
             if S not in self.args[name]:
@@ -989,9 +1084,10 @@ def _work(name, args, kwargs, out):
     and only for blocks the kernel scores), each output written once. The
     BM25 and codec kernels' operations are f32 ones (integer bit
     operations not counted); flash attention's are 4 D per live (q, k)
-    pair per head, at the tensor-core peak of its input type."""
+    pair per head, at the peak of its input type (bf16: the tensor cores'
+    dense peak; f32: the SIMT pipes')."""
     import torch
-    if name == "flash_attention":
+    if name.startswith("flash_attention"):
         q, k, v = args[:3]
         B, Sq, H, D = q.shape
         pairs = _live_pairs(Sq, k.shape[1], kwargs.get("causal", True),
@@ -1057,6 +1153,8 @@ def phase_timing(rec, launches, err) -> tuple:
              "bm25_blocks_compact": (
                  bops.bm25_blocks_compact,
                  lambda *a, k1: bref.bm25_blocks_compact_ref(*a, k1)),
+             "flash_attention_tc": (fops.flash_attention,
+                                    _by_row(fref.attention_ref)),
              "flash_attention": (fops.flash_attention,
                                  _by_row(fref.attention_ref))}
     sources = {"pack": ("postings_pack.cu", "postings_pack/kernel.py:56"),
@@ -1067,6 +1165,8 @@ def phase_timing(rec, launches, err) -> tuple:
                                        "bm25_blockmax/kernel.py:294"),
                "bm25_blocks_compact": ("bm25_blockmax.cu",
                                        "bm25_blockmax/kernel.py:210"),
+               "flash_attention_tc": ("flash_attention_tc.cu",
+                                      "flash_attention/kernel.py:74"),
                "flash_attention": ("flash_attention.cu",
                                    "flash_attention/kernel.py:74")}
     line, per_shape = [], {}
@@ -1075,7 +1175,7 @@ def phase_timing(rec, launches, err) -> tuple:
         if sum(weights.values()) != launches[name]:
             raise AssertionError(f"{name}: {sum(weights.values())} calls"
                                  f" recorded, {launches[name]} launches")
-        flash = name == "flash_attention"
+        flash = name.startswith("flash_attention")
         rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
         if flash:
             tot["library_ms"] = 0.0
@@ -1104,6 +1204,11 @@ def phase_timing(rec, launches, err) -> tuple:
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
             if flash:
                 row.update(_flash_yardstick(a, kw))
+            if name == "flash_attention_tc":
+                # the SIMT kernel, which took these calls before the
+                # tensor-core kernel existed, on the same inputs
+                row["simt_ms"] = _device_ms(lambda: fops.launch(
+                    "flash_attention", *a, **kw), n=5, warm=1)
             rows.append(row)
             w = weights[S] / sum(weights.values())
             for key in tot:
@@ -1129,23 +1234,25 @@ def phase_timing(rec, launches, err) -> tuple:
               f" x{common['launches']}: {common['ms']:.4f} ms; largest "
               f"S={rows[-1]['S']} x{rows[-1]['launches']}: "
               f"{rows[-1]['ms']:.4f} ms", flush=True)
-    flash_line = next(e for e in line if e["name"] == "flash_attention")
-    rows = {r["S"]: r for r in per_shape["flash_attention"]}
     S = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
-    g = rows[(4, S, 0)]
-    loc = next(r for key, r in rows.items() if key[:2] == (4, S) and key[2])
-    print(f"[timing] flash_attention: {flash_line['ms']:.3f} ms per launch "
-          f"on the LM path (plain {flash_line['plain_ms']:.3f} ms, bound "
-          f"{flash_line['bound_ms']:.4f} ms, SDPA at softcap 0 "
-          f"{flash_line['library_ms']:.3f} ms; each the mean over the same "
-          f"launches); at the prefill's B=4 S={S}, each on the same inputs:"
-          f" global {g['ms']:.3f} ms (bound {g['bound_ms']:.4f}, plain "
-          f"{g['plain_ms']:.3f}; at softcap 0 the kernel "
-          f"{g['kernel_softcap0_ms']:.3f} vs SDPA {g['library_ms']:.3f}), "
-          f"local {loc['ms']:.3f} ms (bound {loc['bound_ms']:.4f}, plain "
-          f"{loc['plain_ms']:.3f}; at softcap 0 the kernel "
-          f"{loc['kernel_softcap0_ms']:.3f} vs SDPA {loc['library_ms']:.3f})",
-          flush=True)
+    for name in ("flash_attention_tc", "flash_attention"):
+        fl = next(e for e in line if e["name"] == name)
+        print(f"[timing] {name}: {fl['ms']:.3f} ms per launch over its "
+              f"{fl['launches']} launches (plain {fl['plain_ms']:.3f} ms, "
+              f"bound {fl['bound_ms']:.4f} ms, SDPA at softcap 0 "
+              f"{fl['library_ms']:.3f} ms; each the mean over the same "
+              f"launches, on the same inputs)", flush=True)
+        for r in per_shape[name]:
+            old = f", SIMT {r['simt_ms']:.3f}" if "simt_ms" in r else ""
+            print(f"[timing] {name} at (B, S, window) = {r['S']} x"
+                  f"{r['launches']}: {r['ms']:.3f} ms (bound "
+                  f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.3f}{old}; at "
+                  f"softcap 0 the kernel {r['kernel_softcap0_ms']:.3f} vs "
+                  f"SDPA {r['library_ms']:.3f})", flush=True)
+    rows = {r["S"]: r for r in per_shape["flash_attention_tc"]}
+    if (4, S, 0) not in rows:
+        raise AssertionError(f"no tensor-core launch at the prefill's "
+                             f"B=4 S={S}")
     return line, per_shape
 
 
@@ -1296,6 +1403,10 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    tc_build = tc_build_check()
+    print(f"[build] flash_attention_tc: {tc_build['hgmma']} HGMMA "
+          f"instructions in the SASS; spill bytes and registers per "
+          f"instantiation {tc_build['instantiations']}", flush=True)
 
     # f32 matmuls of the LM's reference checks run in full f32 (the
     # defaults, set here so no caller's setting leaks in)
@@ -1308,11 +1419,15 @@ def main(argv=None) -> int:
           f"exactly ({time.perf_counter() - t0:.1f}s): {err}", flush=True)
     t0 = time.perf_counter()
     flash_err = phase_flash_parity(dev)
-    err["flash_attention"] = max(flash_err.values())
-    print(f"[parity] flash_attention equals its plain version within "
+    err["flash_attention_tc"] = flash_err["flash_attention_tc"]
+    err["flash_attention"] = max(flash_err["flash_attention/float32"],
+                                 flash_err["flash_attention/bfloat16"])
+    print(f"[parity] both flash kernels equal their plain version within "
           f"{FLASH_TOL} (abs and rel) on the JAX kernel test's sweep, D in "
-          f"{{8, 16, 160}}, D 256 over 1100 tokens with window 300 and rows"
-          f" with nothing to attend; max abs err "
+          f"{{8, 16, 160}}, D 256 over 1100 tokens with window 300, the "
+          f"tensor-core sweep (D in {{64, 128, 160, 256}}, ragged lengths, "
+          f"windows at and across tile edges, softcap 0 and 50, G in "
+          f"{{1, 2, 8}}) and rows with nothing to attend; max abs err "
           f"{flash_err} ({time.perf_counter() - t0:.1f}s)", flush=True)
 
     # the LM path first, with the card to itself; its state is freed
@@ -1388,8 +1503,9 @@ def main(argv=None) -> int:
                                         upd_ids)
     durable["durable_s"] = time.perf_counter() - t0
     print(f"[durable] ({durable['durable_s']:.1f}s)", flush=True)
+    f32_launches = lm["checks"]["f32_launches"]
     launches = {n: launches[n] + d_launches[n] + lm_launches[n]
-                for n in launches}
+                + f32_launches[n] for n in launches}
 
     t0 = time.perf_counter()
     line, per_shape = phase_timing(rec, launches, err)
@@ -1401,6 +1517,7 @@ def main(argv=None) -> int:
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "ptxas": {k: v[1] for k, v in
                                       _build.BUILD_LOG.items()},
+        "tc_build": tc_build,
         "report": report, "checks": checks, "profile": prof,
         "durable": durable, "lm": lm,
         "kernels": line, "kernel_shapes": per_shape,

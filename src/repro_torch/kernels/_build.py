@@ -11,10 +11,14 @@ C entry point returns ``cudaGetLastError()`` after its launches, which
 Builds go to ``build/torch_kernels/`` at the root of the checkout (listed
 in ``.gitignore``; ``REPRO_TORCH_BUILD_DIR`` overrides it), named by a
 hash of the source and the flags, so an edited source never loads a stale
-library. Flags: ``sm_90a`` only, ``-O3``, no ``--use_fast_math``, and
-``--fmad=false`` — bit-identity with the plain versions needs IEEE
-``*``, ``+`` and ``/`` without contraction (the flash-attention kernel,
-held to a tolerance, writes its fused multiply-adds as ``fmaf``).
+library; its ``ptxas -v`` report is kept beside it (``build_report``).
+Flags (``nvcc_flags``): ``COMMON_FLAGS`` for every source
+(``sm_90a`` only, ``-O3``, no ``--use_fast_math``) and each source's own
+``SOURCE_FLAGS``: the BM25 kernels add ``--fmad=false``, since their
+bit-identity with the plain versions needs IEEE ``*``, ``+`` and ``/``
+without contraction. The flash-attention kernels, held to a tolerance,
+contract freely. A source's target hashes its own flags only, so a change
+to one source's flags rebuilds that source alone.
 
 ``LAUNCHES`` counts, per kernel op, the times a wrapper launched its
 kernel (the CPU path never touches it); ``chip_smoke.py`` zeroes it
@@ -32,10 +36,12 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("postings_pack", "bm25_blockmax", "flash_attention")
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "--ptxas-options=-v", "-shared", "-Xcompiler",
-              "-fPIC")
+SOURCES = ("postings_pack", "bm25_blockmax", "flash_attention",
+           "flash_attention_tc")
+COMMON_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                "--ptxas-options=-v", "-shared", "-Xcompiler", "-fPIC")
+SOURCE_FLAGS = {"postings_pack": (), "bm25_blockmax": ("--fmad=false",),
+                "flash_attention": (), "flash_attention_tc": ()}
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -57,11 +63,15 @@ SIGNATURES = {
         "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _F, _F, _I, _P),
     },
+    "flash_attention_tc": {
+        "flash_attention_tc_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _F, _P),
+    },
 }
 
 LAUNCHES = {"pack": 0, "unpack": 0, "bm25_blocks": 0,
             "bm25_blocks_midgrid": 0, "bm25_blocks_compact": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_tc": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -91,9 +101,14 @@ def _nvcc() -> str:
     return found
 
 
+def nvcc_flags(name: str) -> tuple:
+    """The flags ``csrc/<name>.cu`` is compiled with."""
+    return COMMON_FLAGS + SOURCE_FLAGS[name]
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -109,7 +124,8 @@ def build_all() -> dict:
         if target.exists():
             continue
         tmp = target.parent / f"{target.stem}.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target, time.perf_counter())
@@ -120,6 +136,7 @@ def build_all() -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
         else:
+            target.with_suffix(".log").write_text(log)
             os.replace(tmp, target)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -132,6 +149,12 @@ def build_all() -> dict:
             f.restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def build_report(name: str) -> str:
+    """The compiler's report (``ptxas -v``: registers, spills, warnings)
+    from the build of ``csrc/<name>.cu``'s current library."""
+    return _target(name).with_suffix(".log").read_text()
 
 
 def lib(name: str):

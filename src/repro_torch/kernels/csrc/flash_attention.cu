@@ -1,4 +1,8 @@
-// Flash attention (forward) for Hopper (sm_90a), f32 SIMT.
+// Flash attention (forward) for Hopper (sm_90a), f32 SIMT: the route of
+// f32 inputs, and of bf16 ones whose head dim the tensor-core kernel
+// (flash_attention_tc.cu) does not take (kernels/flash_attention/ops.py::
+// route: D not a multiple of 16 in [64, 256], as the SMOKE configs' 8 and
+// 16). f32 is held to 2e-5, which bf16 tensor-core products cannot meet.
 //
 // Replaces the JAX package's Pallas kernel
 //   kernels/flash_attention/kernel.py::flash_attention (_fa_kernel)
@@ -10,12 +14,9 @@
 // are exactly 0, the running max starts at -0.7 * FLT_MAX, a row with
 // nothing to attend comes out as 0, and the output is in q's dtype.
 //
-// Bound: operations. At the LM path's shapes (gemma2-9b prefill, S = 8192,
-// D = 256) a layer does 4 * D flops per live (q, k) pair, ~2e12 flops
-// against ~0.8 GB of q, k, v and out: ~2 ms on the tensor cores at the
-// bf16 peak and 0.24 ms of memory time. This first version runs on the
-// f32 SIMT pipes (67 TFLOP/s peak), so it cannot come closer than ~15x
-// to that bound; wgmma, TMA and warp specialisation are later work.
+// Bound: operations, 4 D flops per live (q, k) pair. In f32 the SIMT
+// pipes' 67 TFLOP/s are the peak there is: at gemma2-9b's prefill shapes
+// (B = 4, S = 8192, D = 256) a global layer needs ~33 ms at that peak.
 //
 // Design: one 256-thread CTA per (batch x query head, 64-row q tile). The
 // Pallas grid's sequential kv axis becomes a loop over 64-row kv tiles in
@@ -25,12 +26,12 @@
 // transposed in shared memory (d-major, 68-float rows keep float4
 // alignment), V row-major, all as f32 whatever the input dtype, so the
 // inner loops read float4s: per d, a thread takes 4 q rows and 4 k
-// columns (a 4x4 score tile, explicit fmaf so --fmad=false does not split
-// them); per kv row, 4 weights and D/16 columns of v. A row's 16 score
-// columns live in 16 lanes of one half-warp, so its max and sum are four
-// xor shuffles. At D = 256 the tiles take 222,208 bytes of shared memory
-// (one CTA per SM), hence the opt-in above 48 KB. The heaviest q tiles of
-// a causal head are launched first.
+// columns (a 4x4 score tile, explicit fmaf); per kv row, 4 weights and
+// D/16 columns of v. A row's 16 score columns live in 16 lanes of one
+// half-warp, so its max and sum are four xor shuffles. At D = 256 the
+// tiles take 222,208 bytes of shared memory (one CTA per SM), hence the
+// opt-in above 48 KB. The heaviest q tiles of a causal head are launched
+// first.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -20,7 +20,8 @@ at full width a second cache would not fit beside the first.
 
 Not ported yet (they raise ``NotImplementedError``): MoE layers, the
 device mesh (context-parallel prefill, sharded decode) and the
-early-fusion patch stub (ROADMAP.md, Queue 1 item 9); the training step.
+early-fusion patch stub (ROADMAP.md, Queue 1: "Off the main path, last:
+MoE, mesh, patches"); the training step.
 """
 from __future__ import annotations
 
@@ -39,8 +40,9 @@ def _unsupported(cfg, mesh=None, patches=None) -> None:
             if on]
     if what:
         raise NotImplementedError(
-            f"{', '.join(what)}: not ported yet (ROADMAP.md, Queue 1 item 9;"
-            f" the port serves dense LMs on one device)")
+            f"{', '.join(what)}: not ported yet (ROADMAP.md, Queue 1, \"Off "
+            f"the main path, last: MoE, mesh, patches\"; the port serves dense"
+            f" LMs on one device)")
 
 
 # --------------------------------------------------------------------------

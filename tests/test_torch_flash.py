@@ -123,8 +123,9 @@ def test_row_with_nothing_to_attend_is_zero():
 
 def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     _, (q, k, v) = _mk(1, 40, 40, 4, 2, 16, "bfloat16", seed=2)
-    before = _build.LAUNCHES["flash_attention"]
+    before = dict(_build.LAUNCHES)
     got = ops.flash_attention(q, k, v, causal=True, window=8, softcap=50.0)
     want = ref.attention_ref(q, k, v, causal=True, window=8, softcap=50.0)
     assert torch.equal(got, want)
-    assert _build.LAUNCHES["flash_attention"] == before
+    for route in ("flash_attention", "flash_attention_tc"):
+        assert _build.LAUNCHES[route] == before[route]

@@ -25,10 +25,11 @@ KERNEL_CALLS = {"pack", "unpack", "bm25_blocks", "bm25_blocks_partials",
                 "encode_segment", "decode_segment", "write_segment",
                 "read_segment", "open_latest", "open_latest_degraded",
                 "open_searcher", "_open_latest_full", "commit",
-                # the flash-attention op, its C entry point, the model's
-                # attention call and the LM entry points above it
-                "flash_attention", "flash_attention_fwd", "_attention",
-                "prefill", "generate", "serve_lm"}
+                # the flash-attention op, its launcher, its C entry points,
+                # the model's attention call and the LM entry points above
+                "flash_attention", "launch", "flash_attention_fwd",
+                "flash_attention_tc_fwd", "_attention", "prefill",
+                "generate", "serve_lm"}
 
 
 def _modules():

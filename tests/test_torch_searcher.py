@@ -160,3 +160,35 @@ def test_converted_index_single_query_paths(seg_sets):
         np.testing.assert_array_equal(v_t.numpy().view(np.uint32),
                                       v_e.numpy().view(np.uint32))
         assert st["prune_stats"].blocks_scored > 0
+
+
+@pytest.mark.parametrize("prune", [True, False])
+def test_empty_postings_segment_matches_reference(prune):
+    """A tombstoned set where one segment keeps a live doc but no postings
+    (``test_merge.tombstoned_seg_set(4, 4)``, query [10, 46, 10^6], k = 9;
+    the force-merged oracle ranks that doc, 3001, 9th at score 0.0). Both
+    searchers skip readers without postings, as the reference's
+    ``IndexSearcher`` does, so the 9th id is the -1 pad. The port keeps
+    that: its ids and values equal the JAX searcher's, and its values equal
+    ``bm25_exhaustive``'s on the force-merged index (the contract of
+    ``tests/test_pruning.py``, held by score)."""
+    from test_merge import tombstoned_seg_set
+    segs = tombstoned_seg_set(4, 4)
+    base_ids = {}
+    t_segs = [segment_from_repro(s, base_ids) for s in segs]
+    q, k = np.array([10, 46, 10 ** 6], np.int32), 9
+    js = JReaderCache(prune=prune).refresh(segs)
+    ts = ReaderCache(prune=prune, device="cpu").refresh(t_segs)
+    v_j, i_j = js.search(q, k)
+    v_t, i_t = ts.search(q, k)
+    np.testing.assert_array_equal(v_t.numpy().view(np.uint32),
+                                  np.asarray(v_j).view(np.uint32))
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    midx = j_build(merge_segments(list(segs)))
+    v_e = np.asarray(j_exhaustive(midx, jnp.asarray(q), midx.n_docs)[0])[:k]
+    np.testing.assert_array_equal(v_t.numpy(), v_e)
+    assert int(i_t[-1]) == -1 and v_e[-1] == 0.0
+    v_b, i_b = ts.search_batched(np.stack([q, q]), k)
+    for row in range(2):
+        np.testing.assert_array_equal(v_b[row].numpy(), v_t.numpy())
+        np.testing.assert_array_equal(i_b[row].numpy(), i_t.numpy())
