@@ -10,12 +10,19 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 2. build    — compile the hand-written kernels from ``src/repro_torch/
               kernels/csrc`` (one nvcc per source, in parallel); the
               tensor-core flash kernel's SASS must hold HGMMA (wgmma)
-              instructions and its D = 256 instantiation must not spill;
+              instructions and its D = 256 instantiation must not spill,
+              nor may pack or any instantiation of the midgrid walk;
 3. parity   — each kernel against its plain PyTorch version on the card:
-              exactly, pack/unpack on random words with bw 0 and 32 edge
-              blocks, bm25_blocks with and without partials, midgrid at
+              exactly, pack/unpack on random words at 1, 31, 33, 4096,
+              4097 and 2^21 + 3 blocks (pack's grid-stride tail; the largest codec
+              stream's size) with bw 0, 1 and 32 blocks, and unpack(pack(
+              x)) == x; bm25_blocks with and without partials; midgrid at
               every pow2 bucket up to 4096 blocks for k in {1, 10, 32} and
-              128 query rows, bm25_blocks_compact at S in {1, 37, 4099}
+              128 query rows, and past one staged chunk of its walk (S in
+              {16384, 32768}, block_rows 1, 8 and 128, rows out of range,
+              ubf = inf, theta = 0 or with negative and infinite rows, a
+              block skipped only by the carry's floor at 0);
+              bm25_blocks_compact at S in {1, 37, 4099}
               with bw-0/bw-32 blocks and the rows array's last block; and
               both flash kernels within the JAX kernel test's tolerances
               (2e-5 in f32, the SIMT kernel; 2e-2 in bf16) on that test's
@@ -82,7 +89,10 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               attention's yardstick, on the same inputs and averaged the
               same way: SDPA (causal, GQA, the window as a mask) at
               softcap 0, beside the kernel at softcap 0; beside the
-              tensor-core kernel, the SIMT kernel on the same inputs.
+              tensor-core kernel, the SIMT kernel on the same inputs;
+              beside midgrid, its walk launch alone on the same inputs
+              (its flags equal to the op's) and the walk's ns per step
+              of block_rows blocks.
 
 In every counted run (the LM path, the f32 LM prefills, the slice, the
 durable path's indexing + recovery + serving and its WAL run) the launch
@@ -235,19 +245,27 @@ def phase_parity(dev) -> dict:
     from repro_torch.kernels.postings_pack import ops as pops
     from repro_torch.kernels.postings_pack import ref as pref
     rng = np.random.default_rng(0)
-    err = {}
-    words = rng.integers(0, 2 ** 32, (4096, 128), dtype=np.uint64)
-    words >>= rng.integers(0, 33, (4096, 1)).astype(np.uint64)
-    words = words.astype(np.uint32)
-    words[0], words[1], words[2] = 0, 0xFFFFFFFF, 1   # bw 0, 32, 1
-    d = torch.from_numpy(words.view(np.int32)).to(dev)
-    got, want = pops.pack(d), pref.pack_ref(d)
-    err["pack"] = _exact("pack", got, want)
-    bw = got[1].cpu()
-    assert int(bw[0]) == 0 and int(bw[1]) == 32, bw[:3]
-    back = pops.unpack(*got)
-    err["unpack"] = _exact("unpack", [back], [pref.unpack_ref(*want)])
-    assert torch.equal(back, d), "unpack(pack(x)) != x"
+    err = {"pack": 0.0, "unpack": 0.0}
+    # pack's grid-stride tail (1, 31, 33, 4097), 4096 blocks, and a
+    # stream the size of the largest codec stream; blocks 0-2 have bw 0,
+    # 32 and 1
+    for nb in (1, 31, 33, 4096, 4097, (1 << 21) + 3):
+        g = torch.Generator(device=dev).manual_seed(nb)
+        words = torch.randint(0, 1 << 32, (nb, 128), dtype=torch.int64,
+                              device=dev, generator=g)
+        words >>= torch.randint(0, 33, (nb, 1), device=dev, generator=g)
+        words[0], words[1:2], words[2:3] = 0, 0xFFFFFFFF, 1
+        d = pref.wrap_i32(words)
+        del words
+        got, want = pops.pack(d), pref.pack_ref(d)
+        err["pack"] = max(err["pack"], _exact(f"pack nb={nb}", got, want))
+        bw = got[1][:3].cpu().tolist()
+        assert bw == [0, 32, 1][:nb], bw
+        back = pops.unpack(*got)
+        err["unpack"] = max(err["unpack"], _exact(
+            f"unpack nb={nb}", [back], [pref.unpack_ref(*want)]))
+        assert torch.equal(back, d), f"unpack(pack(x)) != x at nb={nb}"
+        del d, got, want, back
 
     e = 0.0
     for S in (1, 37, 4096):
@@ -277,6 +295,36 @@ def phase_parity(dev) -> dict:
                                                 nmax, k=k, block_rows=8)
             e = max(e, _exact(f"midgrid S={S} k={k}", got, want))
             skipped += int(got[3].sum())
+    # past one staged chunk of the walk (4096 blocks), 1 to 4 blocks per
+    # lane per step; rows out of range, ubf = inf, theta = 0 (S = 16384)
+    # or random with -1.5, -0.0, inf and 0 in rows 0-3 (S = 32768), and a
+    # negative bound in row 0 right after the first step (skipped only
+    # once the carry is floored at 0)
+    for S in (16384, 32768):
+        for br in (1, 8, 128):
+            args = _blocks(rng, S, dev, pref)
+            rows = rng.integers(0, 128, S).astype(np.int32)
+            edge = rng.random(S) < 0.05
+            rows[edge] = rng.choice(np.array([-1, 128, 1000, -(2 ** 31)],
+                                             np.int32), int(edge.sum()))
+            ubf = (rng.random(S) * 8).astype(np.float32)
+            ubf[rng.random(S) < 0.05] = np.inf
+            theta = np.zeros((1, 128), np.float32)
+            if S == 32768:
+                theta = rng.random((1, 128)).astype(np.float32)
+                theta[0, :4] = (-1.5, -0.0, np.inf, 0.0)
+            rows[:br][rows[:br] == 0] = 5
+            rows[br], ubf[br] = 0, -0.5
+            args[6][br] = 1
+            t = [torch.from_numpy(a).to(dev) for a in (rows, ubf, theta)]
+            nmax = torch.tensor(1.2, dtype=torch.float32, device=dev)
+            got = bops.bm25_blocks_midgrid(*args, *t, nmax, k=10,
+                                           block_rows=br)
+            want = bref.bm25_blocks_midgrid_ref(*args, *t, nmax, k=10,
+                                                block_rows=br)
+            e = max(e, _exact(f"midgrid S={S} block_rows={br}", got, want))
+            skipped += int(got[3].sum())
+            assert int(got[3][br]) == 1, "the floored carry did not skip"
     assert skipped > 0, "the midgrid carry never skipped a block"
     err["bm25_blocks_midgrid"] = e
 
@@ -418,6 +466,28 @@ def phase_flash_parity(dev) -> dict:
     return err
 
 
+def _ptxas_functions(name: str) -> dict:
+    """{mangled function: {"spill_bytes", "registers"}} from the ``ptxas
+    -v`` report of ``csrc/<name>.cu``'s current library."""
+    import re
+    from repro_torch.kernels import _build
+    out, cur = {}, None
+    for line in _build.build_report(name).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = out.setdefault(m[1], {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if cur is not None and m:
+            cur["spill_bytes"] = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if cur is not None and m:
+            cur["registers"] = int(m[1])
+            cur = None
+    return out
+
+
 def tc_build_check() -> dict:
     """The tensor-core kernel's library as built: HGMMA (wgmma) in its
     SASS (``cuobjdump --dump-sass``), and each instantiation's spill bytes
@@ -431,25 +501,37 @@ def tc_build_check() -> dict:
                            str(_build._target("flash_attention_tc"))],
                           capture_output=True, text=True, check=True).stdout
     out = {"hgmma": sass.count("HGMMA"), "instantiations": {}}
-    cur = None
-    for line in _build.build_report("flash_attention_tc").splitlines():
-        m = re.search(r"Function properties for \S*flash_tc_kernelILi(\d+)"
-                      r"ELi(\d+)", line)
+    for fn, props in _ptxas_functions("flash_attention_tc").items():
+        m = re.search(r"flash_tc_kernelILi(\d+)ELi(\d+)", fn)
         if m:
-            cur = out["instantiations"].setdefault(f"D{m[1]}_BN{m[2]}", {})
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if cur is not None and m:
-            cur["spill_bytes"] = int(m[1]) + int(m[2])
-        m = re.search(r"Used (\d+) registers", line)
-        if cur is not None and m:
-            cur["registers"] = int(m[1])
-            cur = None
+            out["instantiations"][f"D{m[1]}_BN{m[2]}"] = props
     path = out["instantiations"].get("D256_BN64", {})
     if out["hgmma"] == 0 or path.get("spill_bytes") != 0:
         raise AssertionError(f"flash_attention_tc: no HGMMA in the SASS or "
                              f"the D = 256 instantiation spills: {out}")
+    return out
+
+
+def retrieval_build_check() -> dict:
+    """Spill bytes and registers of the redesigned retrieval kernels:
+    ``pack_kernel`` and the four ``midgrid_walk_kernel`` instantiations
+    (1-4 blocks per lane per step). Fails if one is missing or spills."""
+    import re
+    out = {}
+    for src, kern in (("postings_pack", "pack_kernel"),
+                      ("bm25_blockmax", "midgrid_walk_kernel")):
+        for fn, props in _ptxas_functions(src).items():
+            # (not unpack_kernel: a mangled name's length precedes it)
+            m = re.search(r"(?<![A-Za-z_])" + kern + r"(?:ILi(\d+)E)?", fn)
+            if m:
+                out[kern + (f"<{m[1]}>" if m[1] else "")] = props
+    want = {"pack_kernel"} | {f"midgrid_walk_kernel<{n}>"
+                              for n in range(1, 5)}
+    if set(out) != want or any(p.get("spill_bytes") != 0
+                               for p in out.values()):
+        raise AssertionError(f"pack / midgrid walk: an instantiation is "
+                             f"missing from the ptxas report or spills: "
+                             f"{out}")
     return out
 
 
@@ -1193,6 +1275,7 @@ def phase_timing(rec, launches, err) -> tuple:
                 err[name] = max(err[name], _exact(f"{name} at S={S}", out,
                                                   want))
             nbytes, ops, peak = _work(name, a, kw, out)
+            skip = out[3] if name == "bm25_blocks_midgrid" else None
             del out, want
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / peak * 1e3
@@ -1204,6 +1287,10 @@ def phase_timing(rec, launches, err) -> tuple:
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
             if flash:
                 row.update(_flash_yardstick(a, kw))
+            if name == "bm25_blocks_midgrid":
+                steps = S // min(int(kw.get("block_rows", 8)), S)
+                row["walk_ms"] = _walk_ms(a, kw, skip)
+                row["walk_ns_per_step"] = row["walk_ms"] * 1e6 / steps
             if name == "flash_attention_tc":
                 # the SIMT kernel, which took these calls before the
                 # tensor-core kernel existed, on the same inputs
@@ -1227,13 +1314,24 @@ def phase_timing(rec, launches, err) -> tuple:
             "library_ms": tot.get("library_ms")})
         if flash:
             continue
+        loss = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows)
         common = max(rows, key=lambda r: (r["launches"], r["S"]))
         print(f"[timing] {name}: {line[-1]['ms']:.4f} ms per launch on the "
               f"path (plain {line[-1]['plain_ms']:.3f} ms, bound "
               f"{line[-1]['bound_ms']:.5f} ms); most frequent S={common['S']}"
               f" x{common['launches']}: {common['ms']:.4f} ms; largest "
               f"S={rows[-1]['S']} x{rows[-1]['launches']}: "
-              f"{rows[-1]['ms']:.4f} ms", flush=True)
+              f"{rows[-1]['ms']:.4f} ms; loss launches x (ms - bound) "
+              f"{loss:.2f} ms", flush=True)
+        if name in ("pack", "bm25_blocks_midgrid"):
+            # the redesigned kernels shape by shape (pack from 32k blocks)
+            cells = [f"{r['S']} ({r['launches']}: {r['ms']:.4f} / "
+                     f"{r['bound_ms']:.4f}"
+                     + (f"; walk {r['walk_ns_per_step']:.1f} ns/step"
+                        if "walk_ms" in r else "") + ")"
+                     for r in rows if name != "pack" or r["S"] >= 1 << 15]
+            print(f"[timing] {name} per S (launches: ms / bound): "
+                  + ", ".join(cells), flush=True)
     S = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
     for name in ("flash_attention_tc", "flash_attention"):
         fl = next(e for e in line if e["name"] == name)
@@ -1254,6 +1352,34 @@ def phase_timing(rec, launches, err) -> tuple:
         raise AssertionError(f"no tensor-core launch at the prefill's "
                              f"B=4 S={S}")
     return line, per_shape
+
+
+def _walk_ms(a, kw, want_skip) -> float:
+    """Device ms (``_device_ms``) of the midgrid walk alone
+    (``bm25_midgrid_walk``: the op's second launch, not counted as a
+    launch of the path) on one path call's arguments, with the blocks'
+    k-th values from the plain version; its skip flags must equal the
+    op's."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bm25_blockmax import ref as bref
+    pd, bwd, first, pt, bwt, idf, act, rows, ubf, theta, nmax = a
+    S = pd.shape[0]
+    _, tf, num = bref._decode(pd, bwd, first, pt, bwt, idf,
+                              kw.get("k1", 0.9))
+    kth = bref.midgrid_kth_ref(tf, num, act, nmax, int(kw["k"]))
+    skip = torch.empty(S, dtype=torch.int32, device=pd.device)
+    lib = _build.lib("bm25_blockmax")
+
+    def walk():
+        _build.check(lib.bm25_midgrid_walk(
+            act.data_ptr(), rows.data_ptr(), ubf.data_ptr(),
+            theta.data_ptr(), kth.data_ptr(),
+            min(int(kw.get("block_rows", 8)), S), skip.data_ptr(), S,
+            _build.stream_ptr(pd)), "bm25_midgrid_walk")
+    walk()
+    _exact("the midgrid walk alone", [skip], [want_skip])
+    return _device_ms(walk)
 
 
 def _by_row(plain):
@@ -1407,6 +1533,9 @@ def main(argv=None) -> int:
     print(f"[build] flash_attention_tc: {tc_build['hgmma']} HGMMA "
           f"instructions in the SASS; spill bytes and registers per "
           f"instantiation {tc_build['instantiations']}", flush=True)
+    retrieval_build = retrieval_build_check()
+    print(f"[build] pack and the midgrid walk: spill bytes and registers "
+          f"{retrieval_build}", flush=True)
 
     # f32 matmuls of the LM's reference checks run in full f32 (the
     # defaults, set here so no caller's setting leaks in)
@@ -1517,7 +1646,7 @@ def main(argv=None) -> int:
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "ptxas": {k: v[1] for k, v in
                                       _build.BUILD_LOG.items()},
-        "tc_build": tc_build,
+        "tc_build": tc_build, "retrieval_build": retrieval_build,
         "report": report, "checks": checks, "profile": prof,
         "durable": durable, "lm": lm,
         "kernels": line, "kernel_shapes": per_shape,

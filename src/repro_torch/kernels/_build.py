@@ -58,6 +58,7 @@ SIGNATURES = {
                          _I, _I, _P, _P, _P, _P, _P, _L, _P),
         "bm25_compact": (_P, _L, _P, _P, _P, _P, _L, _P, _P, _P, _P, _F,
                          _P, _P, _P, _L, _P),
+        "bm25_midgrid_walk": (_P, _P, _P, _P, _P, _I, _P, _L, _P),
     },
     "flash_attention": {
         "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

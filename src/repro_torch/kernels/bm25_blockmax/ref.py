@@ -95,6 +95,16 @@ def _kth_lane_partial(part, k: int):
     return torch.clamp_min(cur.max(dim=1).values, 0.0)
 
 
+def midgrid_kth_ref(tf, num, active, norm_max, k: int):
+    """(S,) f32: each block's k-th largest pessimistic partial
+    ``num / (tf + norm_max)`` (0 on inactive blocks and tf = 0 lanes),
+    which the midgrid walk folds into the carry."""
+    nmax = torch.as_tensor(norm_max, dtype=torch.float32, device=tf.device)
+    part = torch.where((active > 0)[:, None] & (tf > 0), num / (tf + nmax),
+                       0.0)
+    return _kth_lane_partial(part, k)
+
+
 def bm25_blocks_midgrid_ref(packed_docs, bw_docs, first_doc, packed_tf,
                             bw_tf, idf, active, rows, ubf, theta_lanes,
                             norm_max, k1: float = 0.9, k: int = 10,
@@ -118,9 +128,7 @@ def bm25_blocks_midgrid_ref(packed_docs, bw_docs, first_doc, packed_tf,
     docids, tf, num = _decode(packed_docs, bw_docs, first_doc, packed_tf,
                               bw_tf, idf, k1)
     act = active > 0
-    nmax = torch.as_tensor(norm_max, dtype=torch.float32, device=dev)
-    part = torch.where(act[:, None] & (tf > 0), num / (tf + nmax), 0.0)
-    kth = _kth_lane_partial(part, k)
+    kth = midgrid_kth_ref(tf, num, active, norm_max, k)
     rows = rows.to(torch.int64)
     in_range = (rows >= 0) & (rows < BLOCK)
     rows_c = rows.clamp(0, BLOCK - 1)

@@ -36,9 +36,29 @@
 // cannot raise L >= 0), so the work splits in three launches:
 //   1. one CTA per block, in parallel: decode (as above) and the block's
 //      k-th value by k-1 rounds of block-wide max + retire-all-ties;
-//   2. one CTA walking the steps in order: skip flags and the carry L in
-//      shared memory — only the sequential part stays sequential;
+//   2. the walk, one CTA: only the carry's chain stays sequential;
 //   3. one CTA per block: zero the outputs of skipped blocks.
+// The walk is bound by latency, not bytes: S / block_rows dependent
+// steps, each a read of L and a fold into it, against 16 B of metadata
+// and 4 B of flag per block. So nothing on the chain touches global
+// memory. All four warps stage the metadata (rows, active, ubf, kth) into
+// shared memory with cp.async, in chunks of up to 4096 blocks, double
+// buffered: chunk c + 1 loads while warp 0 walks chunk c, so any S works.
+// Warp 0 walks with __syncwarp between phases and no block barrier: per
+// step, lane j (and j + 32, ... for block_rows > 32) reads L[row] for its
+// block and flags it; after a __syncwarp the lanes fold the kept blocks'
+// k-th values into L with a shared-memory atomicMax on the float's bits;
+// after another __syncwarp the next step reads L. The next step's
+// metadata is read from shared memory into registers before the chain's
+// read of L. The flags go to shared memory and are written back,
+// coalesced, by all four warps at the end of each chunk. The fold is
+// exact whatever order the lanes take: the reference starts each step's
+// update at 0, so after the first step (whose decisions read theta as
+// given, then L = max(L, 0)) every L and every folded value is >= 0, and
+// non-negative floats order as their int32 bits do (-0.0, whose bits are
+// the least int, compares equal to +0.0 in every decision). Rows outside
+// [0, 128) read 0 and fold nowhere. bm25_midgrid_walk launches the walk
+// alone, to time it.
 //
 // compact: the same per-block work, but each selected block's planes come
 // straight from the COMPACT rows (only the live planes of every block,
@@ -235,35 +255,187 @@ __global__ void midgrid_decode_kernel(
   if (t == 0) kth_out[b] = kth;
 }
 
-// the sequential part: skip flags and the per-row carry, step by step
-__global__ void midgrid_skip_kernel(
+constexpr int kWalkThreads = 128;   // 4 warps stage and write back
+constexpr int kWalkChunk = 4096;    // blocks per staged chunk, at most
+// two chunks of (rows, active, ubf, kth) and one chunk of flags
+constexpr int kWalkSmem = (2 * 4 + 1) * kWalkChunk * 4;
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies, all but the newest group, have landed
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+struct WalkBuf {
+  int32_t* row;
+  int32_t* act;
+  float* ubf;
+  float* kth;
+};
+
+__device__ __forceinline__ WalkBuf walk_buf(uint32_t* smem, long long c,
+                                            int chunk) {
+  uint32_t* base = smem + (c & 1) * 4 * chunk;
+  return {reinterpret_cast<int32_t*>(base),
+          reinterpret_cast<int32_t*>(base + chunk),
+          reinterpret_cast<float*>(base + 2 * chunk),
+          reinterpret_cast<float*>(base + 3 * chunk)};
+}
+
+// every thread of the CTA: cp.async blocks [b0, b0 + n) into buf
+__device__ __forceinline__ void stage_chunk(
+    const WalkBuf& buf, const int32_t* __restrict__ rows,
+    const int32_t* __restrict__ active, const float* __restrict__ ubf,
+    const float* __restrict__ kth, long long b0, int n) {
+  for (int i = threadIdx.x; i < n; i += kWalkThreads) {
+    cp_async4(buf.row + i, rows + b0 + i);
+    cp_async4(buf.act + i, active + b0 + i);
+    cp_async4(buf.ubf + i, ubf + b0 + i);
+    cp_async4(buf.kth + i, kth + b0 + i);
+  }
+}
+
+struct Meta {
+  int32_t row, act;
+  float ubf, kth;
+};
+
+// lane's blocks of step st: j = lane + 32 i (clamped to the step's first
+// block past block_rows; those lanes neither flag nor fold)
+template <int NPL>
+__device__ __forceinline__ void load_step(const WalkBuf& buf, int st,
+                                          int block_rows, int lane,
+                                          Meta (&m)[NPL]) {
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int j = lane + 32 * i;
+    const int o = st * block_rows + (j < block_rows ? j : 0);
+    m[i] = {buf.row[o], buf.act[o], buf.ubf[o], buf.kth[o]};
+  }
+}
+
+// warp 0 walks one staged chunk of `steps` steps; L in shared memory
+template <int NPL>
+__device__ __forceinline__ void walk_chunk(const WalkBuf& buf,
+                                           int32_t* flags, float* L,
+                                           int block_rows, int steps,
+                                           bool first_chunk) {
+  const int lane = threadIdx.x;
+  Meta cur[NPL], nxt[NPL];
+  load_step<NPL>(buf, 0, block_rows, lane, cur);
+  for (int st = 0; st < steps; ++st) {
+    // the next step's metadata, off the carry's chain
+    load_step<NPL>(buf, st + 1 < steps ? st + 1 : st, block_rows, lane, nxt);
+    float fold[NPL];
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) {
+      const int j = lane + 32 * i;
+      const bool in = cur[i].row >= 0 && cur[i].row < kBlock;
+      const float l = in ? L[cur[i].row] : 0.0f;
+      const bool sk = cur[i].act > 0 && cur[i].ubf < l;
+      if (j < block_rows) flags[st * block_rows + j] = sk ? 1 : 0;
+      fold[i] = sk ? 0.0f : cur[i].kth;
+    }
+    __syncwarp();  // every decision of the step has read L
+    if (first_chunk && st == 0) {
+      // the reference's fold starts from 0: L >= 0 from here on
+      for (int r = lane; r < kBlock; r += 32) L[r] = fmaxf(L[r], 0.0f);
+      __syncwarp();
+    }
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) {
+      const int j = lane + 32 * i;
+      if (j < block_rows && cur[i].row >= 0 && cur[i].row < kBlock)
+        atomicMax(reinterpret_cast<int*>(L + cur[i].row),
+                  __float_as_int(fold[i]));
+    }
+    __syncwarp();  // the step's folds land before the next step reads L
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) cur[i] = nxt[i];
+  }
+}
+
+// the sequential part: skip flags and the per-row carry, chunk by chunk
+// (chunk: a multiple of block_rows, at most kWalkChunk)
+template <int NPL>
+__global__ void __launch_bounds__(kWalkThreads) midgrid_walk_kernel(
     const int32_t* __restrict__ active, const int32_t* __restrict__ rows,
     const float* __restrict__ ubf, const float* __restrict__ theta,
-    const float* __restrict__ kth, int block_rows,
+    const float* __restrict__ kth, int block_rows, int chunk,
     int32_t* __restrict__ skip, long long S) {
+  extern __shared__ __align__(16) uint32_t smem[];
   __shared__ float L[kBlock];
-  __shared__ float kth_eff[kMaxStepRows];
-  __shared__ int row_s[kMaxStepRows];
   const int t = threadIdx.x;
+  int32_t* flags = reinterpret_cast<int32_t*>(smem + 8 * chunk);
   L[t] = theta[t];
-  __syncthreads();
-  for (long long s0 = 0; s0 < S; s0 += block_rows) {
-    if (t < block_rows) {
-      const long long b = s0 + t;
-      const int row = rows[b];
-      const float l_row = (row >= 0 && row < kBlock) ? L[row] : 0.0f;
-      const bool sk = active[b] > 0 && ubf[b] < l_row;
-      skip[b] = sk ? 1 : 0;
-      kth_eff[t] = sk ? 0.0f : kth[b];
-      row_s[t] = row;
+  const long long n_chunks = (S + chunk - 1) / chunk;
+  stage_chunk(walk_buf(smem, 0, chunk), rows, active, ubf, kth, 0,
+              static_cast<int>(min(S, static_cast<long long>(chunk))));
+  cp_async_commit();
+  for (long long c = 0; c < n_chunks; ++c) {
+    const long long b0 = c * chunk;
+    const int n = static_cast<int>(min(S - b0, static_cast<long long>(chunk)));
+    if (c + 1 < n_chunks) {
+      const long long b1 = b0 + chunk;
+      stage_chunk(walk_buf(smem, c + 1, chunk), rows, active, ubf, kth, b1,
+                  static_cast<int>(min(S - b1, static_cast<long long>(chunk))));
     }
-    __syncthreads();
-    float m = 0.0f;
-    for (int r = 0; r < block_rows; ++r) {
-      if (row_s[r] == t) m = fmaxf(m, kth_eff[r]);
-    }
-    L[t] = fmaxf(L[t], m);
-    __syncthreads();
+    cp_async_commit();      // (an empty group past the last chunk)
+    cp_async_wait_prior();  // this thread's copies of chunk c landed
+    __syncthreads();        // and every thread's; L's seed too
+    if (t < 32)
+      walk_chunk<NPL>(walk_buf(smem, c, chunk), flags, L, block_rows,
+                      n / block_rows, c == 0);
+    __syncthreads();        // the chunk's flags are final
+    for (int i = t; i < n; i += kWalkThreads) skip[b0 + i] = flags[i];
+  }
+}
+
+template <int NPL>
+cudaError_t launch_walk(const int32_t* active, const int32_t* rows,
+                        const float* ubf, const float* theta,
+                        const float* kth, int block_rows, int32_t* skip,
+                        long long S, cudaStream_t st) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        midgrid_walk_kernel<NPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kWalkSmem);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
+  const long long full = (kWalkChunk / block_rows) * block_rows;
+  const int chunk = static_cast<int>(S < full ? S : full);
+  midgrid_walk_kernel<NPL><<<1, kWalkThreads, (2 * 4 + 1) * chunk * 4, st>>>(
+      active, rows, ubf, theta, kth, block_rows, chunk, skip, S);
+  return cudaGetLastError();
+}
+
+// the walk for S > 0 blocks and a valid block_rows
+cudaError_t walk(const void* active, const void* rows, const void* ubf,
+                 const void* theta, const void* kth, int block_rows,
+                 void* skip_out, long long S, cudaStream_t st) {
+  const int32_t* act = static_cast<const int32_t*>(active);
+  const int32_t* rws = static_cast<const int32_t*>(rows);
+  const float* ub = static_cast<const float*>(ubf);
+  const float* th = static_cast<const float*>(theta);
+  const float* kt = static_cast<const float*>(kth);
+  int32_t* sk = static_cast<int32_t*>(skip_out);
+  switch ((block_rows + 31) / 32) {  // blocks per lane per step
+    case 1: return launch_walk<1>(act, rws, ub, th, kt, block_rows, sk, S, st);
+    case 2: return launch_walk<2>(act, rws, ub, th, kt, block_rows, sk, S, st);
+    case 3: return launch_walk<3>(act, rws, ub, th, kt, block_rows, sk, S, st);
+    default: return launch_walk<4>(act, rws, ub, th, kt, block_rows, sk, S,
+                                   st);
   }
 }
 
@@ -355,17 +527,25 @@ int bm25_midgrid(const void* pd, const void* bwd, const void* first,
       static_cast<float*>(num_out), static_cast<float*>(kth));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  midgrid_skip_kernel<<<1, kBlock, 0, st>>>(
-      static_cast<const int32_t*>(active), static_cast<const int32_t*>(rows),
-      static_cast<const float*>(ubf), static_cast<const float*>(theta),
-      static_cast<const float*>(kth), block_rows,
-      static_cast<int32_t*>(skip_out), S);
-  e = cudaGetLastError();
+  e = walk(active, rows, ubf, theta, kth, block_rows, skip_out, S, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   midgrid_zero_kernel<<<grid, kBlock, 0, st>>>(
       static_cast<const int32_t*>(skip_out), static_cast<int32_t*>(doc_out),
       static_cast<float*>(tf_out), static_cast<float*>(num_out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// bm25_midgrid's second launch alone, for timing it: skip_out (S,) i32
+// from the blocks' k-th values kth (S,) f32
+int bm25_midgrid_walk(const void* active, const void* rows, const void* ubf,
+                      const void* theta, const void* kth, int block_rows,
+                      void* skip_out, long long S, void* stream) {
+  if (S <= 0) return static_cast<int>(cudaGetLastError());
+  if (block_rows < 1 || block_rows > kMaxStepRows || S % block_rows != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(walk(active, rows, ubf, theta, kth, block_rows,
+                               skip_out, S,
+                               static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"
