@@ -11,19 +11,24 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               kernels/csrc`` (one nvcc per source, in parallel); the
               tensor-core flash kernel's SASS must hold HGMMA (wgmma)
               instructions and its D = 256 instantiation must not spill,
-              nor may pack or any instantiation of the midgrid walk;
+              nor may pack, unpack, compact or any instantiation of the
+              midgrid walk;
 3. parity   — each kernel against its plain PyTorch version on the card:
               exactly, pack/unpack on random words at 1, 31, 33, 4096,
-              4097 and 2^21 + 3 blocks (pack's grid-stride tail; the largest codec
-              stream's size) with bw 0, 1 and 32 blocks, and unpack(pack(
-              x)) == x; bm25_blocks with and without partials; midgrid at
+              4097 and 2^21 + 3 blocks (the grid-stride tail; past one
+              resident grid; the largest codec stream's size) with bw 0, 1
+              and 32 blocks, and unpack(pack(x)) == x, also with garbage
+              in every dead plane and with bw 33 and 255 headers; a
+              misaligned packed or rows view must raise; bm25_blocks with
+              and without partials; midgrid at
               every pow2 bucket up to 4096 blocks for k in {1, 10, 32} and
               128 query rows, and past one staged chunk of its walk (S in
               {16384, 32768}, block_rows 1, 8 and 128, rows out of range,
               ubf = inf, theta = 0 or with negative and infinite rows, a
               block skipped only by the carry's floor at 0);
-              bm25_blocks_compact at S in {1, 37, 4099}
-              with bw-0/bw-32 blocks and the rows array's last block; and
+              bm25_blocks_compact at S in {1, 37, 4099, 20011} (the last
+              past the resident warps) with bw-0/bw-32 blocks and the rows
+              array's last block; and
               both flash kernels within the JAX kernel test's tolerances
               (2e-5 in f32, the SIMT kernel; 2e-2 in bf16) on that test's
               sweep, D in {8, 16, 160}, D 256 over 1100 tokens with a
@@ -236,6 +241,19 @@ def _blocks(rng, S, dev, ref):
     return [pd, bwd, first.to(dev), pt, bwt, idf.to(dev), act.to(dev)]
 
 
+def _refused(name: str, call) -> None:
+    """``call`` (a kernel op on a misaligned view) must raise ValueError
+    and launch nothing."""
+    from repro_torch.kernels import _build
+    before = _build.LAUNCHES[name]
+    try:
+        call()
+    except ValueError:
+        assert _build.LAUNCHES[name] == before, name
+        return
+    raise AssertionError(f"{name}: a misaligned view was not refused")
+
+
 def phase_parity(dev) -> dict:
     """Every kernel vs its plain version on the card, exactly."""
     import numpy as np
@@ -265,7 +283,27 @@ def phase_parity(dev) -> dict:
         err["unpack"] = max(err["unpack"], _exact(
             f"unpack nb={nb}", [back], [pref.unpack_ref(*want)]))
         assert torch.equal(back, d), f"unpack(pack(x)) != x at nb={nb}"
-        del d, got, want, back
+        # garbage in every dead plane, and bw 33 / 255 headers (a uint8
+        # header holds them) on bw-32 blocks: the same values
+        packed, bw = got
+        dead = torch.arange(32, device=dev)[None, :, None] >= bw[:, None,
+                                                                 None]
+        junk = torch.randint(1, 1 << 31, packed.shape, dtype=torch.int32,
+                             device=dev, generator=g)
+        packed = torch.where(dead, junk, packed)
+        del dead, junk
+        bw = torch.where(bw == 32, torch.where(torch.arange(
+            nb, device=dev) % 2 == 0, 33, 255), bw).to(torch.int32)
+        back = pops.unpack(packed, bw)
+        err["unpack"] = max(err["unpack"], _exact(
+            f"unpack nb={nb} with garbage", [back],
+            [pref.unpack_ref(packed, bw)]))
+        assert torch.equal(back, d), f"garbage leaked into unpack at nb={nb}"
+        del d, got, want, back, packed, bw
+    # a misaligned view is refused, not copied or run on the plain path
+    buf = torch.zeros(37 * 128 + 1, dtype=torch.int32, device=dev)
+    bw = torch.zeros(37, dtype=torch.int32, device=dev)
+    _refused("unpack", lambda: pops.unpack(buf[1:].view(37, 32, 4), bw))
 
     e = 0.0
     for S in (1, 37, 4096):
@@ -346,7 +384,7 @@ def phase_parity(dev) -> dict:
         coffs.append((torch.cumsum(bw, 0) - bw).to(torch.int32))
         bws.append(bw)
     e = 0.0
-    for S in (1, 37, 4099):
+    for S in (1, 37, 4099, 20011):
         flat = rng.integers(0, nb, S)
         flat[:min(S, 3)] = [nb - 1, 0, 1][:min(S, 3)]
         flat = torch.from_numpy(flat).to(dev)
@@ -363,6 +401,10 @@ def phase_parity(dev) -> dict:
                           bops.bm25_blocks_compact(*args),
                           bref.bm25_blocks_compact_ref(*args)))
     err["bm25_blocks_compact"] = e
+    buf = torch.zeros(rows[0].numel() + 1, dtype=torch.int32, device=dev)
+    buf[1:] = rows[0].reshape(-1)
+    _refused("bm25_blocks_compact", lambda: bops.bm25_blocks_compact(
+        buf[1:].view(-1, 4), *args[1:]))
     torch.cuda.synchronize()
     return err
 
@@ -514,24 +556,28 @@ def tc_build_check() -> dict:
 
 def retrieval_build_check() -> dict:
     """Spill bytes and registers of the redesigned retrieval kernels:
-    ``pack_kernel`` and the four ``midgrid_walk_kernel`` instantiations
-    (1-4 blocks per lane per step). Fails if one is missing or spills."""
+    ``pack_kernel``, ``unpack_kernel``, ``bm25_compact_kernel`` and the
+    four ``midgrid_walk_kernel`` instantiations (1-4 blocks per lane per
+    step). Fails if one is missing or spills."""
     import re
     out = {}
     for src, kern in (("postings_pack", "pack_kernel"),
+                      ("postings_pack", "unpack_kernel"),
+                      ("bm25_blockmax", "bm25_compact_kernel"),
                       ("bm25_blockmax", "midgrid_walk_kernel")):
         for fn, props in _ptxas_functions(src).items():
-            # (not unpack_kernel: a mangled name's length precedes it)
+            # (pack_kernel is not unpack_kernel: a mangled name's length,
+            # not a letter, precedes it)
             m = re.search(r"(?<![A-Za-z_])" + kern + r"(?:ILi(\d+)E)?", fn)
             if m:
                 out[kern + (f"<{m[1]}>" if m[1] else "")] = props
-    want = {"pack_kernel"} | {f"midgrid_walk_kernel<{n}>"
-                              for n in range(1, 5)}
+    want = {"pack_kernel", "unpack_kernel", "bm25_compact_kernel"} | {
+        f"midgrid_walk_kernel<{n}>" for n in range(1, 5)}
     if set(out) != want or any(p.get("spill_bytes") != 0
                                for p in out.values()):
-        raise AssertionError(f"pack / midgrid walk: an instantiation is "
-                             f"missing from the ptxas report or spills: "
-                             f"{out}")
+        raise AssertionError(f"pack / unpack / compact / midgrid walk: a "
+                             f"kernel is missing from the ptxas report or "
+                             f"spills: {out}")
     return out
 
 
@@ -1207,7 +1253,7 @@ def _work(name, args, kwargs, out):
     return nbytes, int(keep.sum()) * 128 * ops_per_lane, F32_OPS_PER_S
 
 
-def phase_timing(rec, launches, err) -> tuple:
+def phase_timing(rec, launches, err, card: str) -> tuple:
     """Each kernel at every shape key S the main paths gave it, on the
     arguments it was given there: held against its plain version once
     more (exactly; flash attention within its tolerance), then timed: the
@@ -1316,27 +1362,29 @@ def phase_timing(rec, launches, err) -> tuple:
             continue
         loss = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows)
         common = max(rows, key=lambda r: (r["launches"], r["S"]))
-        print(f"[timing] {name}: {line[-1]['ms']:.4f} ms per launch on the "
-              f"path (plain {line[-1]['plain_ms']:.3f} ms, bound "
-              f"{line[-1]['bound_ms']:.5f} ms); most frequent S={common['S']}"
+        print(f"[timing] on {card}: {name}: {line[-1]['ms']:.4f} ms per "
+              f"launch on the path (plain {line[-1]['plain_ms']:.3f} ms, "
+              f"bound {line[-1]['bound_ms']:.5f} ms); most frequent "
+              f"S={common['S']}"
               f" x{common['launches']}: {common['ms']:.4f} ms; largest "
               f"S={rows[-1]['S']} x{rows[-1]['launches']}: "
               f"{rows[-1]['ms']:.4f} ms; loss launches x (ms - bound) "
               f"{loss:.2f} ms", flush=True)
-        if name in ("pack", "bm25_blocks_midgrid"):
+        if name != "bm25_blocks":
             # the redesigned kernels shape by shape (pack from 32k blocks)
             cells = [f"{r['S']} ({r['launches']}: {r['ms']:.4f} / "
                      f"{r['bound_ms']:.4f}"
                      + (f"; walk {r['walk_ns_per_step']:.1f} ns/step"
                         if "walk_ms" in r else "") + ")"
                      for r in rows if name != "pack" or r["S"] >= 1 << 15]
-            print(f"[timing] {name} per S (launches: ms / bound): "
+            print(f"[timing] on {card}: {name} per S (launches: ms / bound): "
                   + ", ".join(cells), flush=True)
     S = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
     for name in ("flash_attention_tc", "flash_attention"):
         fl = next(e for e in line if e["name"] == name)
-        print(f"[timing] {name}: {fl['ms']:.3f} ms per launch over its "
-              f"{fl['launches']} launches (plain {fl['plain_ms']:.3f} ms, "
+        print(f"[timing] on {card}: {name}: {fl['ms']:.3f} ms per launch "
+              f"over its {fl['launches']} launches (plain "
+              f"{fl['plain_ms']:.3f} ms, "
               f"bound {fl['bound_ms']:.4f} ms, SDPA at softcap 0 "
               f"{fl['library_ms']:.3f} ms; each the mean over the same "
               f"launches, on the same inputs)", flush=True)
@@ -1534,8 +1582,8 @@ def main(argv=None) -> int:
           f"instructions in the SASS; spill bytes and registers per "
           f"instantiation {tc_build['instantiations']}", flush=True)
     retrieval_build = retrieval_build_check()
-    print(f"[build] pack and the midgrid walk: spill bytes and registers "
-          f"{retrieval_build}", flush=True)
+    print(f"[build] pack, unpack, compact and the midgrid walk: spill "
+          f"bytes and registers {retrieval_build}", flush=True)
 
     # f32 matmuls of the LM's reference checks run in full f32 (the
     # defaults, set here so no caller's setting leaks in)
@@ -1637,7 +1685,7 @@ def main(argv=None) -> int:
                 + f32_launches[n] for n in launches}
 
     t0 = time.perf_counter()
-    line, per_shape = phase_timing(rec, launches, err)
+    line, per_shape = phase_timing(rec, launches, err, card)
     print(f"[timing] ({time.perf_counter() - t0:.1f}s)", flush=True)
 
     out_dir = ROOT / args.out

@@ -10,8 +10,9 @@ C entry point returns ``cudaGetLastError()`` after its launches, which
 
 Builds go to ``build/torch_kernels/`` at the root of the checkout (listed
 in ``.gitignore``; ``REPRO_TORCH_BUILD_DIR`` overrides it), named by a
-hash of the source and the flags, so an edited source never loads a stale
-library; its ``ptxas -v`` report is kept beside it (``build_report``).
+hash of the source, the ``csrc/`` headers it includes and the flags, so
+an edited source or header never loads a stale library; its ``ptxas
+-v`` report is kept beside it (``build_report``).
 Flags (``nvcc_flags``): ``COMMON_FLAGS`` for every source
 (``sm_90a`` only, ``-O3``, no ``--use_fast_math``) and each source's own
 ``SOURCE_FLAGS``: the BM25 kernels add ``--fmad=false``, since their
@@ -29,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -108,7 +110,10 @@ def nvcc_flags(name: str) -> tuple:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src)
+    for header in re.findall(rb'#include "([^"]+)"', src):
+        h.update((CSRC / header.decode()).read_bytes())
     h.update(" ".join(nvcc_flags(name)).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -180,6 +185,15 @@ def check_tensor(t, dtype, shape, name: str) -> None:
             or not t.is_contiguous() or not t.is_cuda:
         raise ValueError(f"{name}: want contiguous CUDA {dtype} {tuple(shape)}"
                          f", got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def check_aligned(t, name: str) -> None:
+    """Raise unless ``t``'s data starts on a 16-byte boundary: the kernels
+    that load 16 bytes a lane need it, and a view may start anywhere."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel loads 16 bytes a lane and "
+                         f"needs a 16-byte aligned tensor, got address "
+                         f"{t.data_ptr():#x}")
 
 
 def stream_ptr(t) -> int:

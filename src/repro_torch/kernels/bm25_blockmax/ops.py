@@ -79,7 +79,7 @@ def bm25_blocks_compact(cplanes_docs, coff_docs, bw_docs, first_doc,
     """-> (docids, tf, num) each (S, 128) for the S selected blocks, whose
     planes are read from the compact rows ``cplanes_*`` (P, 4) at row
     offsets ``coff_*`` (S,) — equal to ``bm25_blocks`` over the expanded
-    planes."""
+    planes. On CUDA the rows must be 16-byte aligned."""
     if not cplanes_docs.is_cuda:
         return ref.bm25_blocks_compact_ref(
             cplanes_docs, coff_docs, bw_docs, first_doc, cplanes_tf, coff_tf,
@@ -88,6 +88,7 @@ def bm25_blocks_compact(cplanes_docs, coff_docs, bw_docs, first_doc,
     for t, name in ((cplanes_docs, "cplanes_docs"), (cplanes_tf,
                                                      "cplanes_tf")):
         _build.check_tensor(t, torch.int32, (t.shape[0], 4), name)
+        _build.check_aligned(t, name)
     for t, name in ((coff_docs, "coff_docs"), (bw_docs, "bw_docs"),
                     (first_doc, "first_doc"), (coff_tf, "coff_tf"),
                     (bw_tf, "bw_tf"), (active, "active")):

@@ -16,12 +16,13 @@
 //
 // Bound: bytes. A block reads 2 x 512 B of planes plus 20 B of metadata and
 // writes 3 x 512 B of lanes; the arithmetic is a few dozen ops per lane.
-// Design: one 128-thread CTA per block; the planes are staged through
-// shared memory (one coalesced 512 B load each), the scan is a warp
-// __shfl_up_sync scan plus a 4-slot cross-warp pass, added as unsigned so
-// wraparound matches two's-complement JAX. All float math is IEEE
-// round-to-nearest (__fmul_rn/__fadd_rn/__fdiv_rn, built with
-// --fmad=false), so outputs are bit-identical to the plain version.
+// Design (bm25_blocks, midgrid's decode): one 128-thread CTA per block;
+// the planes are staged through shared memory (one coalesced 512 B load
+// each), the scan is a warp __shfl_up_sync scan plus a 4-slot cross-warp
+// pass, added as unsigned so wraparound matches two's-complement JAX.
+// All float math is IEEE round-to-nearest (__fmul_rn/__fadd_rn/__fdiv_rn,
+// built with --fmad=false), so outputs are bit-identical to the plain
+// version.
 //
 // partials: the per-lane max over every block of num / (tf + k1(1-b)) —
 // order-free, so each block writes its row and one more small kernel
@@ -65,19 +66,34 @@
 // back to back: the bytes the storage codec writes) at its row offset
 // coff. The TPU kernel loads a fixed 32-row window at coff, because
 // Pallas needs static shapes, and masks the next block's rows with
-// plane < bw. Here thread t of the 128-thread CTA loads word t % 4 of
-// plane t / 4 only when that plane is live, so exactly bw rows are read
-// (coalesced, 16 B per row), dead planes stage as zero, and no row past
-// the array is touched. Then the same unpack, scan and f32 order as
-// bm25_blocks. Inactive blocks (bucket padding) read nothing and write 0.
+// plane < bw. Here one warp takes a block, in a grid-stride loop over a
+// grid of resident CTAs (pack's design, warp_block.cuh). Lane p loads row
+// coff + p of each stream as one 16-byte load, only if p < bw and the
+// row lies in the array: exactly bw rows are read, dead planes are zero,
+// and no row past the array is touched. The five-stage shuffle transpose
+// leaves gap and tf 32w + t in lane t's word w. The prefix sum is four
+// warp __shfl_up_sync scans (one per word, independent) plus the earlier
+// words' totals, broadcast from lane 31, all in uint32: addition mod
+// 2^32 is exact in any order, so the doc ids wrap as JAX's int32 do. tf
+// and num keep bm25_blocks' f32 order. Each output is written as four
+// coalesced 128-byte stores (plain stores: the next kernel on the path
+// reads them). Inactive blocks (bucket padding; active <= 0 is uniform
+// over the warp) read no rows and write 0. Each warp loads the next
+// block's metadata while this block's rows are in flight. No shared
+// memory, no block barrier. The loads need 16-byte aligned rows arrays;
+// the wrapper checks it.
 // Bound: bytes, as bm25_blocks, but the planes cost 16 B per live plane
 // instead of 512 B per block.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp_block.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;
+using warp_block::kBlock;
+constexpr int kCompactThreads = 256;   // 8 warps, a block each
+constexpr int kCompactWarps = kCompactThreads / 32;
 constexpr int kMaxStepRows = 128;
 
 __device__ __forceinline__ uint32_t unpack_lane(const uint32_t* words,
@@ -157,18 +173,6 @@ __device__ __forceinline__ Lane decode_lane(
                     slots);
 }
 
-// stage one block's live planes from compact rows: word t % 4 of plane
-// t / 4, zero past the block's width (and past the rows array)
-__device__ __forceinline__ void stage_compact(
-    const uint32_t* __restrict__ rows, long long n_rows, int32_t coff,
-    int32_t bw, uint32_t* w) {
-  const int t = threadIdx.x;
-  const int p = t >> 2;
-  const long long row = static_cast<long long>(coff) + p;
-  w[t] = (p < bw && row >= 0 && row < n_rows) ? rows[row * 4 + (t & 3)]
-                                              : 0u;
-}
-
 __global__ void bm25_kernel(
     const uint32_t* __restrict__ pd, const int32_t* __restrict__ bwd,
     const int32_t* __restrict__ first, const uint32_t* __restrict__ pt,
@@ -189,33 +193,89 @@ __global__ void bm25_kernel(
   }
 }
 
-__global__ void bm25_compact_kernel(
-    const uint32_t* __restrict__ cpd, long long n_rows_d,
+struct CompactMeta {
+  int32_t act, coffd, cofft, bwd, bwt, first;
+  float idf;
+};
+
+__device__ __forceinline__ CompactMeta load_meta(
+    const int32_t* __restrict__ active, const int32_t* __restrict__ coffd,
+    const int32_t* __restrict__ cofft, const int32_t* __restrict__ bwd,
+    const int32_t* __restrict__ bwt, const int32_t* __restrict__ first,
+    const float* __restrict__ idf, long long b) {
+  return {active[b], coffd[b], cofft[b], bwd[b], bwt[b], first[b], idf[b]};
+}
+
+// lane p: compact row coff + p (plane p of the block) if the plane is
+// live and the row lies in the array, else 0
+__device__ __forceinline__ uint4 load_row(const uint4* __restrict__ rows,
+                                          long long n_rows, int32_t coff,
+                                          int32_t bw, int lane) {
+  const long long row = static_cast<long long>(coff) + lane;
+  return (lane < bw && row >= 0 && row < n_rows) ? rows[row]
+                                                 : make_uint4(0u, 0u, 0u, 0u);
+}
+
+__global__ void __launch_bounds__(kCompactThreads) bm25_compact_kernel(
+    const uint4* __restrict__ cpd, long long n_rows_d,
     const int32_t* __restrict__ coffd, const int32_t* __restrict__ bwd,
-    const int32_t* __restrict__ first, const uint32_t* __restrict__ cpt,
+    const int32_t* __restrict__ first, const uint4* __restrict__ cpt,
     long long n_rows_t, const int32_t* __restrict__ cofft,
     const int32_t* __restrict__ bwt, const float* __restrict__ idf,
     const int32_t* __restrict__ active, float c,
     int32_t* __restrict__ doc_out, float* __restrict__ tf_out,
-    float* __restrict__ num_out) {
-  __shared__ uint32_t wd[kBlock], wt[kBlock], slots[4];
-  const long long b = blockIdx.x;
-  const int t = threadIdx.x;
-  const long long o = b * kBlock + t;
-  if (active[b] <= 0) {  // uniform over the CTA: no barrier is skipped
-    doc_out[o] = 0;
-    tf_out[o] = 0.0f;
-    num_out[o] = 0.0f;
-    return;
+    float* __restrict__ num_out, long long S) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kCompactWarps;
+  long long b = static_cast<long long>(blockIdx.x) * kCompactWarps
+      + (threadIdx.x >> 5);
+  CompactMeta m{};
+  if (b < S) m = load_meta(active, coffd, cofft, bwd, bwt, first, idf, b);
+  for (; b < S; b += stride) {  // b is uniform over the warp
+    uint4 rd = make_uint4(0u, 0u, 0u, 0u), rt = rd;
+    if (m.act > 0) {
+      rd = load_row(cpd, n_rows_d, m.coffd, m.bwd, lane);
+      rt = load_row(cpt, n_rows_t, m.cofft, m.bwt, lane);
+    }
+    CompactMeta nm{};
+    if (b + stride < S)
+      nm = load_meta(active, coffd, cofft, bwd, bwt, first, idf, b + stride);
+    const long long o = b * kBlock + lane;
+    if (m.act <= 0) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        doc_out[o + 32 * w] = 0;
+        tf_out[o + 32 * w] = 0.0f;
+        num_out[o + 32 * w] = 0.0f;
+      }
+    } else {
+      uint32_t gap[4] = {rd.x, rd.y, rd.z, rd.w};
+      uint32_t tfu[4] = {rt.x, rt.y, rt.z, rt.w};
+      warp_block::transpose32x4(gap, lane);
+      warp_block::transpose32x4(tfu, lane);
+      // inclusive scan of each word across the warp
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const uint32_t n = __shfl_up_sync(warp_block::kFull, gap[w], off);
+          if (lane >= off) gap[w] += n;
+        }
+      }
+      const float ic = __fmul_rn(m.idf, c);
+      uint32_t carry = static_cast<uint32_t>(m.first);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const uint32_t total = __shfl_sync(warp_block::kFull, gap[w], 31);
+        const float tf = __uint2float_rn(tfu[w]);
+        doc_out[o + 32 * w] = static_cast<int32_t>(carry + gap[w]);
+        tf_out[o + 32 * w] = tf;
+        num_out[o + 32 * w] = __fmul_rn(ic, tf);
+        carry += total;
+      }
+    }
+    m = nm;
   }
-  const int32_t nd = bwd[b], nt = bwt[b];
-  stage_compact(cpd, n_rows_d, coffd[b], nd, wd);
-  stage_compact(cpt, n_rows_t, cofft[b], nt, wt);
-  __syncthreads();
-  const Lane r = score_lane(wd, wt, nd, nt, first[b], idf[b], 1, c, slots);
-  doc_out[o] = r.doc;
-  tf_out[o] = r.tf;
-  num_out[o] = r.num;
 }
 
 // per-lane max over the S rows, starting from 0 (the Pallas carry's init)
@@ -484,23 +544,29 @@ int bm25_blocks(const void* pd, const void* bwd, const void* first,
 
 // -> doc_out (S,128) i32, tf_out/num_out (S,128) f32 for the S selected
 // blocks, their planes read from the compact rows cpd (n_rows_d, 4) and
-// cpt (n_rows_t, 4) at the blocks' offsets coffd/cofft
+// cpt (n_rows_t, 4), both 16-byte aligned, at the blocks' offsets
+// coffd/cofft
 int bm25_compact(const void* cpd, long long n_rows_d, const void* coffd,
                  const void* bwd, const void* first, const void* cpt,
                  long long n_rows_t, const void* cofft, const void* bwt,
                  const void* idf, const void* active, float c, void* doc_out,
                  void* tf_out, void* num_out, long long S, void* stream) {
   if (S > 0) {
-    bm25_compact_kernel<<<static_cast<unsigned>(S), kBlock, 0,
+    static int resident = 0;
+    unsigned grid = 0;
+    const cudaError_t e = warp_block::grid_for(
+        bm25_compact_kernel, kCompactThreads, S, &resident, &grid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    bm25_compact_kernel<<<grid, kCompactThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(cpd), n_rows_d,
+        static_cast<const uint4*>(cpd), n_rows_d,
         static_cast<const int32_t*>(coffd), static_cast<const int32_t*>(bwd),
-        static_cast<const int32_t*>(first), static_cast<const uint32_t*>(cpt),
+        static_cast<const int32_t*>(first), static_cast<const uint4*>(cpt),
         n_rows_t, static_cast<const int32_t*>(cofft),
         static_cast<const int32_t*>(bwt), static_cast<const float*>(idf),
         static_cast<const int32_t*>(active), c,
         static_cast<int32_t*>(doc_out), static_cast<float*>(tf_out),
-        static_cast<float*>(num_out));
+        static_cast<float*>(num_out), S);
   }
   return static_cast<int>(cudaGetLastError());
 }

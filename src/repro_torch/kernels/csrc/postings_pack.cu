@@ -6,9 +6,9 @@
 // Format: per 128-lane block, bw = 32 - clz(max); 32 bit-planes x 4 words,
 // bit t of word w of plane p is bit p of lane 32w+t; planes >= bw are 0.
 //
-// Bound: bytes. Pack reads 512 B and writes 516 B per block, unpack the
-// reverse, so at 3.35 TB/s a block costs ~0.31 ns; the bit work must stay
-// under that.
+// Bound: bytes. Pack reads 512 B and writes 516 B per block, so at 3.35
+// TB/s a block costs ~0.31 ns; unpack reads 16 B per live plane and 4 B
+// of bw and writes 512 B. The bit work must stay under that.
 //
 // pack: one warp per block, a grid sized to the SMs (occupancy x SM
 // count) and a grid-stride loop over the blocks. Lane t loads values t,
@@ -26,40 +26,29 @@
 // bytes in one coalesced store; bw is a warp __reduce_max_sync. No
 // shared memory, no block barrier; the ragged tail is the loop's bound.
 //
-// unpack: one 128-thread CTA per block, the words staged through shared
-// memory; thread t rebuilds lane t from bit t % 32 of word t / 32 of each
-// live plane.
+// unpack: pack run backwards, on the same grid. Lane p loads plane p's
+// four words as one 16-byte load, and only if p < bw: the kernel reads
+// the live planes alone (the bytes the bound counts) and a dead plane
+// holding garbage unpacks as zero, as the TPU kernel's mask makes it.
+// The same five-stage transpose (its own inverse) leaves value 32w + t
+// in lane t's word w, and the warp stores its 512 bytes as four
+// coalesced 128-byte stores. Each warp loads the next block's planes
+// before it transposes this one, and that block's bw one block earlier
+// still, so a plane load never waits on its bw. No shared memory, no
+// block barrier. The loads need a 16-byte aligned packed array; the
+// wrapper checks it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp_block.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kPackThreads = 256;                 // 8 warps, a block each
-constexpr int kPackWarps = kPackThreads / 32;
-
-// one butterfly stage of the 32x32 bit transpose on four independent
-// words: rows (lanes) t and t ^ S swap the S-bit groups that sit off the
-// diagonal of their 2x2 block of S x S sub-matrices
-template <int S, uint32_t M>
-__device__ __forceinline__ void transpose_stage(uint32_t (&x)[4], bool hi) {
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    const uint32_t keep = hi ? (x[w] & ~M) : (x[w] & M);
-    const uint32_t send = hi ? ((x[w] & M) << S) : ((x[w] & ~M) >> S);
-    x[w] = keep | __shfl_xor_sync(kFull, send, S);
-  }
-}
-
-// lane t holds value t of each chunk -> lane p holds plane p's word of it
-__device__ __forceinline__ void transpose32x4(uint32_t (&x)[4], int lane) {
-  transpose_stage<16, 0x0000ffffu>(x, lane & 16);
-  transpose_stage<8, 0x00ff00ffu>(x, lane & 8);
-  transpose_stage<4, 0x0f0f0f0fu>(x, lane & 4);
-  transpose_stage<2, 0x33333333u>(x, lane & 2);
-  transpose_stage<1, 0x55555555u>(x, lane & 1);
-}
+using warp_block::kBlock;
+using warp_block::kFull;
+using warp_block::transpose32x4;
+constexpr int kThreads = 256;                 // 8 warps, a block each
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ void load_block(const uint32_t* __restrict__ d,
                                            long long b, int lane,
@@ -69,12 +58,12 @@ __device__ __forceinline__ void load_block(const uint32_t* __restrict__ d,
   for (int w = 0; w < 4; ++w) x[w] = __ldcs(p + 32 * w);
 }
 
-__global__ void __launch_bounds__(kPackThreads)
+__global__ void __launch_bounds__(kThreads)
 pack_kernel(const uint32_t* __restrict__ deltas, uint4* __restrict__ packed,
             int32_t* __restrict__ bw_out, long long nb) {
   const int lane = threadIdx.x & 31;
-  const long long stride = static_cast<long long>(gridDim.x) * kPackWarps;
-  long long b = static_cast<long long>(blockIdx.x) * kPackWarps
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  long long b = static_cast<long long>(blockIdx.x) * kWarps
       + (threadIdx.x >> 5);
   uint32_t cur[4] = {0u, 0u, 0u, 0u}, nxt[4] = {0u, 0u, 0u, 0u};
   if (b < nb) load_block(deltas, b, lane, cur);
@@ -91,23 +80,45 @@ pack_kernel(const uint32_t* __restrict__ deltas, uint4* __restrict__ packed,
   }
 }
 
-__global__ void unpack_kernel(const uint32_t* __restrict__ packed,
-                              const int32_t* __restrict__ bw,
-                              uint32_t* __restrict__ out) {
-  __shared__ uint32_t words[kBlock];
-  const long long b = blockIdx.x;
-  const int t = threadIdx.x;
-  words[t] = packed[b * kBlock + t];
-  __syncthreads();
-  const int w = t >> 5, j = t & 31;
-  const int nbits = bw[b];
-  uint32_t v = 0;
-#pragma unroll
-  for (int p = 0; p < 32; ++p) {
-    // p <= 31, so the shift never forms 1u << 32
-    if (p < nbits) v |= ((words[p * 4 + w] >> j) & 1u) << p;
+// lane p: plane p's four words of block b if the plane is live, else 0
+__device__ __forceinline__ void load_planes(const uint4* __restrict__ packed,
+                                            long long b, int32_t bw,
+                                            int lane, uint32_t (&x)[4]) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (lane < bw) v = __ldcs(packed + b * 32 + lane);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+
+__global__ void __launch_bounds__(kThreads)
+unpack_kernel(const uint4* __restrict__ packed,
+              const int32_t* __restrict__ bw, uint32_t* __restrict__ out,
+              long long nb) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  long long b = static_cast<long long>(blockIdx.x) * kWarps
+      + (threadIdx.x >> 5);
+  uint32_t cur[4] = {0u, 0u, 0u, 0u}, nxt[4] = {0u, 0u, 0u, 0u};
+  int32_t bw_nxt = 0;  // bw of block b + stride
+  if (b < nb) {
+    load_planes(packed, b, bw[b], lane, cur);
+    if (b + stride < nb) bw_nxt = bw[b + stride];
   }
-  out[b * kBlock + t] = v;
+  for (; b < nb; b += stride) {  // b is uniform over the warp
+    const long long b1 = b + stride;
+    if (b1 < nb) {
+      load_planes(packed, b1, bw_nxt, lane, nxt);
+      if (b1 + stride < nb) bw_nxt = bw[b1 + stride];
+    }
+    transpose32x4(cur, lane);
+    uint32_t* o = out + b * kBlock + lane;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) __stcs(o + 32 * w, cur[w]);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) cur[w] = nxt[w];
+  }
 }
 
 }  // namespace
@@ -118,39 +129,31 @@ extern "C" {
 int pp_pack(const void* deltas, void* packed, void* bw, long long nb,
             void* stream) {
   if (nb > 0) {
-    // grid: as many CTAs as stay resident, or fewer for a short stream
     static int resident = 0;
-    if (resident == 0) {
-      int dev = 0, sms = 0, per_sm = 0;
-      cudaError_t e = cudaGetDevice(&dev);
-      if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, pack_kernel, kPackThreads, 0);
-      if (e != cudaSuccess || sms * per_sm == 0)
-        return static_cast<int>(e != cudaSuccess ? e
-                                                 : cudaErrorInvalidValue);
-      resident = sms * per_sm;
-    }
-    const long long need = (nb + kPackWarps - 1) / kPackWarps;
-    const long long grid = need < resident ? need : resident;
-    pack_kernel<<<static_cast<unsigned>(grid), kPackThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+    unsigned grid = 0;
+    const cudaError_t e = warp_block::grid_for(pack_kernel, kThreads, nb,
+                                               &resident, &grid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    pack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(deltas), static_cast<uint4*>(packed),
         static_cast<int32_t*>(bw), nb);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// packed (nb, 32, 4) u32, bw (nb,) i32 -> out (nb, 128) u32
+// packed (nb, 32, 4) u32, 16-byte aligned, bw (nb,) i32 -> out (nb, 128)
+// u32
 int pp_unpack(const void* packed, const void* bw, void* out, long long nb,
               void* stream) {
   if (nb > 0) {
-    unpack_kernel<<<static_cast<unsigned>(nb), kBlock, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(packed),
-        static_cast<const int32_t*>(bw), static_cast<uint32_t*>(out));
+    static int resident = 0;
+    unsigned grid = 0;
+    const cudaError_t e = warp_block::grid_for(unpack_kernel, kThreads, nb,
+                                               &resident, &grid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    unpack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint4*>(packed), static_cast<const int32_t*>(bw),
+        static_cast<uint32_t*>(out), nb);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -50,12 +50,13 @@ def pack(deltas: torch.Tensor):
 
 def unpack(packed: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
     """(nb, 32, 4) words + (nb,) bit widths -> (nb, 128) int32 bit
-    patterns."""
+    patterns. On CUDA ``packed`` must be 16-byte aligned."""
     if not packed.is_cuda:
         return ref.unpack_ref(packed, bw)
     nb = packed.shape[0]
     _build.check_tensor(packed, torch.int32, (nb, 32, ref.WORDS_PER_PLANE),
                         "packed")
+    _build.check_aligned(packed, "packed")
     _build.check_tensor(bw, torch.int32, (nb,), "bw")
     out = torch.empty((nb, BLOCK), dtype=torch.int32, device=packed.device)
     rc = _build.lib("postings_pack").pp_unpack(

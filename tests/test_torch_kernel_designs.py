@@ -1,11 +1,19 @@
 """The Hopper kernels' algorithms, checked on the CPU before the card runs
 them: numpy emulations of what each warp does, held bit for bit against
-the plain versions (and, for pack, the JAX package's oracle).
+the plain versions (and, for pack, unpack and compact, the JAX package's
+oracles).
 
 * pack (``csrc/postings_pack.cu::pack_kernel``): the grid-stride loop
   with the next block's loads issued early, and the five-stage
   ``__shfl_xor_sync`` butterfly that transposes each 32 x 32 bit chunk
   (32 lanes as the last array axis; a shuffle is an index by lane ^ s).
+* unpack (``postings_pack.cu::unpack_kernel``): the same loop with each
+  block's bw loaded a step before its planes, a 16-byte load per live
+  plane only (garbage in dead planes never read), the same transpose.
+* compact (``csrc/bm25_blockmax.cu::bm25_compact_kernel``): a warp per
+  block, the next block's metadata loaded early, live rows only, both
+  streams transposed, four warp scans plus lane 31's carry in uint32,
+  and the plain version's f32 order.
 * midgrid (``csrc/bm25_blockmax.cu::midgrid_walk_kernel``): the walk over
   staged chunks, with the floor after the first step and each step's fold
   taken as int32 ``atomicMax`` on the floats' bits in a shuffled order.
@@ -18,7 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.bm25_blockmax import ref as jbref
 from repro.kernels.postings_pack import ref as jref
+from repro_torch.kernels import _build
 from repro_torch.kernels.bm25_blockmax import ref as bref
 from repro_torch.kernels.postings_pack import ref as pref
 
@@ -60,23 +70,28 @@ def transpose32(x: np.ndarray) -> np.ndarray:
     return x
 
 
+def _grid_stride(n: int, n_warps: int, ahead: int) -> None:
+    """The kernels' grid-stride loop over n blocks with ``n_warps`` warps,
+    a register filled ``ahead`` steps before it is consumed: every block
+    is handled once, and by its own loads."""
+    seen = []
+    for g in range(min(n_warps, n)):
+        mine = list(range(g, n, n_warps))
+        pipe = mine[:ahead]
+        for i, b in enumerate(mine):
+            seen.append((b, pipe[0]))
+            pipe = pipe[1:] + ([mine[i + ahead]] if i + ahead < len(mine)
+                               else [])
+    assert sorted(b for b, _ in seen) == list(range(n))
+    assert all(b == src for b, src in seen)
+
+
 def pack_emulated(d: np.ndarray, n_warps: int):
     """``pack_kernel`` with ``n_warps`` warps in the grid: (nb, 128) uint32
     -> (packed (nb, 32, 4) uint32, bw (nb,) int32)."""
     nb = d.shape[0]
-    # the grid-stride loop with its early loads: which block's values each
-    # store transposes (cur), and that every block is stored exactly once
-    src = np.full(nb, -1, np.int64)
-    for g in range(n_warps):
-        cur = g if g < nb else None
-        b = g
-        while b < nb:
-            nxt = b + n_warps if b + n_warps < nb else None
-            assert src[b] == -1
-            src[b] = cur
-            cur, b = nxt, b + n_warps
-    assert (src == np.arange(nb)).all()
-    x = d[src].reshape(nb, 4, 32)            # chunk w, lane t: value 32w+t
+    _grid_stride(nb, n_warps, 1)             # values loaded a step early
+    x = d.reshape(nb, 4, 32)                 # chunk w, lane t: value 32w+t
     m = x.max(axis=1).max(axis=-1).astype(np.int64)   # __reduce_max_sync
     bw = np.where(m == 0, 0, np.floor(np.log2(np.maximum(m, 1))) + 1)
     words = transpose32(x)                   # lane p: plane p's word w
@@ -127,6 +142,176 @@ def test_pack_emulation_edge_widths_match_jax(fill, want_bw):
     np.testing.assert_array_equal(got, np.asarray(p_j))
     np.testing.assert_array_equal(bw, np.asarray(bw_j))
     assert bw[0] == want_bw
+
+
+# --- unpack ---------------------------------------------------------------
+
+def unpack_emulated(packed: np.ndarray, bw: np.ndarray,
+                    n_warps: int) -> np.ndarray:
+    """``unpack_kernel`` with ``n_warps`` warps: (nb, 32, 4) uint32 +
+    (nb,) int32 -> (nb, 128) uint32."""
+    nb = packed.shape[0]
+    _grid_stride(nb, n_warps, 1)                  # planes a step early
+    _grid_stride(nb, n_warps, 2)                  # their bw a step before
+    live = LANE[None, :] < bw[:, None]            # lane p < bw: one load
+    x = np.where(live[:, :, None], packed, np.uint32(0))
+    vals = transpose32(x.transpose(0, 2, 1))      # lane p -> lane t
+    return vals.reshape(nb, 128)                  # word w, lane t: 32w+t
+
+
+def _unpack_inputs(nb: int, seed: int):
+    """Blocks at bw 0, 1, 31, 32, 33 and 255 (a uint8 header holds the
+    last two) and random widths, packed, with random nonzero garbage in
+    every dead plane."""
+    rng = np.random.default_rng(seed)
+    bw = rng.integers(0, 33, nb).astype(np.int32)
+    bw[:6] = (0, 1, 31, 32, 33, 255)
+    vals = rng.integers(0, 2 ** 32, (nb, 128), dtype=np.uint64)
+    vals &= (np.uint64(1) << np.minimum(bw, 32).astype(np.uint64)[:, None]) \
+        - np.uint64(1)
+    vals = vals.astype(np.uint32)
+    packed = pref.pack_ref(_t(vals))[0].numpy().view(np.uint32).copy()
+    dead = np.arange(32)[None, :] >= bw[:, None]
+    garbage = rng.integers(1, 2 ** 32, packed.shape, dtype=np.uint64)
+    packed[dead] = garbage.astype(np.uint32)[dead]
+    return packed, bw, vals
+
+
+@pytest.mark.parametrize("nb,n_warps", [(6, 8), (131, 1), (131, 8),
+                                        (300, 16), (1031, 256)])
+def test_unpack_emulation_matches_unpack_refs(nb, n_warps):
+    packed, bw, vals = _unpack_inputs(nb, nb * 7 + n_warps)
+    assert (packed[0] != 0).all() and (packed[1, 1:] != 0).all()
+    got = unpack_emulated(packed, bw, n_warps)
+    np.testing.assert_array_equal(got, vals)
+    want = pref.unpack_ref(_t(packed), torch.from_numpy(bw))
+    np.testing.assert_array_equal(got, want.numpy().view(np.uint32))
+    j_want = jref.unpack_ref(jnp.asarray(packed), jnp.asarray(bw))
+    np.testing.assert_array_equal(got, np.asarray(j_want))
+
+
+# --- compact --------------------------------------------------------------
+
+def compact_emulated(rows_d, coff_d, bw_d, first, rows_t, coff_t, bw_t, idf,
+                     active, k1: float, n_warps: int):
+    """``bm25_compact_kernel`` with ``n_warps`` warps: uint32 rows (P, 4),
+    int32 / f32 per-block metadata (S,) -> (doc int32, tf f32, num f32),
+    each (S, 128)."""
+    S = coff_d.shape[0]
+    _grid_stride(S, n_warps, 1)          # metadata loaded one step ahead
+    act = active > 0                     # uniform over the warp
+
+    def planes(rows, coff, bw):
+        row = coff.astype(np.int64)[:, None] + LANE          # lane p's row
+        live = act[:, None] & (LANE < bw[:, None]) & (row >= 0) \
+            & (row < rows.shape[0])
+        x = np.where(live[:, :, None],
+                     rows[np.clip(row, 0, rows.shape[0] - 1)], np.uint32(0))
+        return transpose32(x.transpose(0, 2, 1))  # word w, lane t: 32w+t
+
+    gap, tfu = planes(rows_d, coff_d, bw_d), planes(rows_t, coff_t, bw_t)
+    for off in (1, 2, 4, 8, 16):         # __shfl_up_sync, per word
+        gap = np.where(LANE >= off, gap + gap[..., np.maximum(LANE - off, 0)],
+                       gap)
+    doc = np.empty_like(gap)
+    carry = first.view(np.uint32).copy()
+    for w in range(4):
+        doc[:, w] = carry[:, None] + gap[:, w]
+        carry += gap[:, w, 31]           # lane 31's total, broadcast
+    tf = tfu.astype(np.float32)          # __uint2float_rn
+    ic = idf.astype(np.float32) * np.float32(k1 + 1.0)       # f32(k1 + 1)
+    num = ic[:, None, None] * tf
+    a = act[:, None, None]
+    return (np.where(a, doc, 0).view(np.int32).reshape(S, 128),
+            np.where(a, tf, np.float32(0)).reshape(S, 128),
+            np.where(a, num, np.float32(0)).reshape(S, 128))
+
+
+def _compact_case(S: int, seed: int):
+    """Compact rows of 40 blocks per stream (bw 0 and 32 among them, 32
+    zero tail rows) and an S-block selection holding bw-0 and bw-32
+    blocks, the last block before the tail rows and inactive blocks, with
+    first doc ids and gaps that carry the prefix sum past 2^31 and 2^32."""
+    rng = np.random.default_rng(seed)
+    nb = 40
+    streams = []
+    for name in ("docs", "tf"):
+        vals = rng.integers(0, 2 ** 32, (nb, 128), dtype=np.uint64)
+        vals >>= rng.integers(0, 33, (nb, 1)).astype(np.uint64)
+        vals = vals.astype(np.uint32)
+        vals[0], vals[1] = 0, 0xFFFFFFFF
+        vals[-1] = 0x80000000 if name == "docs" else 7
+        packed, bw = pref.pack_ref(_t(vals))
+        rows = torch.cat([pref.compact_planes(packed, bw),
+                          torch.zeros((32, 4), dtype=torch.int32)])
+        streams.append((rows, (torch.cumsum(bw, 0) - bw).to(torch.int32),
+                        bw))
+    flat = rng.integers(0, nb, S)
+    flat[:min(S, 4)] = [nb - 1, 0, 1, 2][:min(S, 4)]
+    first = rng.integers(-(2 ** 31), 2 ** 31, S).astype(np.int32)
+    first[:min(S, 2)] = 2 ** 31 - 5
+    idf = (rng.random(S) * 8).astype(np.float32)
+    active = (rng.random(S) < 0.75).astype(np.int32)
+    active[rng.random(S) < 0.1] = -3
+    active[:min(S, 3)] = 1
+    if S > 4:
+        active[3] = 0
+    (rd, cd, bd), (rt, ct, bt) = streams
+    return (rd, cd[flat], bd[flat], torch.from_numpy(first), rt, ct[flat],
+            bt[flat], torch.from_numpy(idf), torch.from_numpy(active))
+
+
+@pytest.mark.parametrize("S,n_warps", [(1, 8), (37, 8), (300, 40)])
+def test_compact_emulation_matches_compact_refs(S, n_warps):
+    args = _compact_case(S, S * 3 + n_warps)
+    np_args = [a.numpy() for a in args]
+    for i in (0, 4):                     # rows: uint32 words; the rest int
+        np_args[i] = np_args[i].view(np.uint32)
+    got = compact_emulated(*np_args, k1=0.9, n_warps=n_warps)
+    want = bref.bm25_blocks_compact_ref(*args, k1=0.9)
+    j_want = jbref.bm25_blocks_compact_ref(*[jnp.asarray(a)
+                                             for a in np_args], k1=0.9)
+    for g, w, j in zip(got, want, j_want):
+        w, j = w.numpy(), np.asarray(j)
+        assert g.dtype == w.dtype == j.dtype
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
+        np.testing.assert_array_equal(g.view(np.uint32), j.view(np.uint32))
+    if S > 1:      # the first block's ids wrap past 2^31 (int32 sign)
+        assert (got[0][0] < 0).any() and (got[0][0] > 0).any()
+    if S > 4:      # inactive blocks, bw 0 or not, write zeros
+        assert (got[1][args[8].numpy() <= 0] == 0).all()
+        assert (args[8].numpy() < 0).any()
+
+
+# --- both: 16-byte alignment ----------------------------------------------
+
+def test_misaligned_views_are_refused():
+    buf = torch.zeros(4 * 32 * 4 + 4, dtype=torch.int32)
+    _build.check_aligned(buf[:-4].view(4, 32, 4), "packed")
+    _build.check_aligned(buf[4:].view(-1, 4), "rows")  # a whole row on
+    for off in (1, 2, 3):
+        view = buf[off:off + 4 * 32 * 4].view(4, 32, 4)
+        assert view.is_contiguous()
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _build.check_aligned(view, "packed")
+
+
+def test_editing_the_shared_header_renames_its_includers_only(
+        tmp_path, monkeypatch):
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    with open(csrc / "warp_block.cuh", "a") as f:
+        f.write("// edited\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    after = {n: _build._target(n) for n in _build.SOURCES}
+    for n in _build.SOURCES:
+        includes = '#include "warp_block.cuh"' in (CSRC / f"{n}.cu"
+                                                   ).read_text()
+        assert (after[n] != before[n]) == includes, n
+    assert sum(after[n] != before[n] for n in after) == 2
 
 
 # --- midgrid --------------------------------------------------------------
