@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               kernels/csrc`` (one nvcc per source, in parallel); the
               tensor-core flash kernel's SASS must hold HGMMA (wgmma)
               instructions and its D = 256 instantiation must not spill,
-              nor may pack, unpack, compact or any instantiation of the
-              midgrid walk;
+              nor may the SIMT flash kernel's D = 256 instantiations (f32
+              and bf16), pack, unpack, bm25_blocks (with and without
+              partials), compact or any instantiation of the midgrid walk;
 3. parity   — each kernel against its plain PyTorch version on the card:
               exactly, pack/unpack on random words at 1, 31, 33, 4096,
               4097 and 2^21 + 3 blocks (the grid-stride tail; past one
@@ -20,7 +21,8 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               and 32 blocks, and unpack(pack(x)) == x, also with garbage
               in every dead plane and with bw 33 and 255 headers; a
               misaligned packed or rows view must raise; bm25_blocks with
-              and without partials; midgrid at
+              and without partials at S in {1, 37, 4096, 65536}, garbage
+              in dead planes, partials of -0.0 and below; midgrid at
               every pow2 bucket up to 4096 blocks for k in {1, 10, 32} and
               128 query rows, and past one staged chunk of its walk (S in
               {16384, 32768}, block_rows 1, 8 and 128, rows out of range,
@@ -32,10 +34,12 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               both flash kernels within the JAX kernel test's tolerances
               (2e-5 in f32, the SIMT kernel; 2e-2 in bf16) on that test's
               sweep, D in {8, 16, 160}, D 256 over 1100 tokens with a
-              300-token window, the tensor-core kernel's sweep (D in {64,
-              128, 160, 256}, ragged lengths, windows at and across tile
-              edges, softcap 0 and 50, G in {1, 2, 8}) and rows with
-              nothing to attend;
+              300-token window, the SIMT kernel's tile edges in f32
+              (lengths 255-769 around its 256-row kv tiles, windows ending
+              at and across them, 288 work items), the tensor-core
+              kernel's sweep (D in {64, 128, 160, 256}, ragged lengths,
+              windows at and across tile edges, softcap 0 and 50, G in
+              {1, 2, 8}) and rows with nothing to attend;
 4. lm       — the LM path, with the card to itself: ``launch.serve --mode
               lm`` with gemma2-9b at full width and depth (42 layers,
               seeded random fp32 weights), 4 requests of 8192 tokens, 16
@@ -305,15 +309,38 @@ def phase_parity(dev) -> dict:
     bw = torch.zeros(37, dtype=torch.int32, device=dev)
     _refused("unpack", lambda: pops.unpack(buf[1:].view(37, 32, 4), bw))
 
+    # bm25_blocks past one resident grid (65,536 blocks), with garbage in
+    # every dead plane from 37 blocks up (the kernel reads live planes
+    # only); partials whose every value is -0.0 or below come out +0.0
     e = 0.0
-    for S in (1, 37, 4096):
+    g = torch.Generator(device=dev).manual_seed(7)
+    for S in (1, 37, 4096, 65536):
         args = _blocks(rng, S, dev, pref)
-        e = max(e, _exact("bm25_blocks", bops.bm25_blocks(*args),
+        for i in (0, 3) if S >= 37 else ():
+            dead = torch.arange(32, device=dev)[None, :, None] \
+                >= args[i + 1][:, None, None]
+            junk = torch.randint(1, 1 << 31, args[i].shape, dtype=torch.int32,
+                                 device=dev, generator=g)
+            args[i] = torch.where(dead, junk, args[i])
+            del dead, junk
+        e = max(e, _exact(f"bm25_blocks S={S}", bops.bm25_blocks(*args),
                           bref.bm25_blocks_ref(*args)))
-        e = max(e, _exact("bm25_blocks partials",
+        e = max(e, _exact(f"bm25_blocks partials S={S}",
                           bops.bm25_blocks_partials(*args),
                           bref.bm25_blocks_partials_ref(*args)))
+    args = _blocks(rng, 37, dev, pref)
+    args[5] = torch.where(torch.arange(37, device=dev) % 2 == 0,
+                          torch.tensor(-0.0, device=dev),
+                          torch.tensor(-1.5, device=dev))
+    args[6] = torch.ones(37, dtype=torch.int32, device=dev)
+    got = bops.bm25_blocks_partials(*args)
+    e = max(e, _exact("bm25_blocks partials at -0.0", got,
+                      bref.bm25_blocks_partials_ref(*args)))
+    assert bool((got[3].view(torch.int32) == 0).all()), got[3]
     err["bm25_blocks"] = e
+    buf = torch.zeros(37 * 128 + 1, dtype=torch.int32, device=dev)
+    _refused("bm25_blocks", lambda: bops.bm25_blocks(
+        buf[1:].view(37, 32, 4), *args[1:]))
 
     e, skipped = 0.0, 0
     for S in [8 << i for i in range(10)]:           # 8 .. 4096
@@ -442,7 +469,8 @@ def phase_flash_parity(dev) -> dict:
     1. the JAX kernel test's sweep (``tests/test_kernels_flash.py``: four
        shapes, four window/softcap pairs, non-causal with Sq != Skv) in f32
        and bf16, plus D in {8, 16, 160}, D = 256 over 1100 tokens with a
-       window of 300, and rows with nothing to attend;
+       window of 300, and rows with nothing to attend; in f32 also the
+       SIMT kernel's tile edges (``simt_edges``);
     2. the tensor-core kernel's sweep, bf16: D in {64, 128, 160, 256};
        lengths that are not a multiple of 64 or 128; windows at and
        across the 64- and 128-row tile edges; softcap 0 and 50; G = 1, 2
@@ -466,6 +494,17 @@ def phase_flash_parity(dev) -> dict:
         # gemma2's D, a ragged tail and a window that starts inside a kv
         # tile: the band's tile skipping at its edges
         ((1, 1100, 1100, 4, 2, 256), dict(window=300, softcap=50.0))]
+    # the SIMT kernel's tile edges, f32: 64-row q tiles, 256-row kv tiles
+    # (lengths 255, 257, 513, 769), windows ending at and across a kv
+    # tile, D 8 / 64 / 160 / 256, cross lengths, and 288 work items (more
+    # than one per CTA)
+    simt_edges = [
+        ((1, 255, 255, 2, 1, 256), dict(softcap=50.0)),
+        ((1, 257, 257, 2, 2, 256), dict(window=256)),
+        ((1, 513, 513, 4, 2, 256), dict(window=257, softcap=50.0)),
+        ((2, 320, 700, 2, 1, 160), dict(causal=False)),
+        ((1, 769, 769, 4, 1, 8), dict(window=300)),
+        ((2, 1100, 1100, 8, 2, 64), dict(window=300, softcap=50.0))]
     # causal, window 4, Sq > Skv: rows 19.. attend to nothing
     empty_rows = dict(window=4)
     tc_sweep = [((B, Sq, Skv, H, KVH, D), kw)
@@ -478,8 +517,8 @@ def phase_flash_parity(dev) -> dict:
                     ((1, 700, 700, 8, 1), dict(window=63)),
                     ((1, 192, 320, 4, 2), dict(causal=False, softcap=50.0)),
                     ((1, 64, 16, 2, 1), empty_rows))]
-    sweeps = [(torch.float32, jax_sweep + [((1, 64, 16, 2, 1, 64),
-                                            empty_rows)]),
+    sweeps = [(torch.float32, jax_sweep + simt_edges
+               + [((1, 64, 16, 2, 1, 64), empty_rows)]),
               (torch.bfloat16, jax_sweep + tc_sweep + [((1, 64, 16, 2, 1, 16),
                                                         empty_rows)])]
     err = {"flash_attention_tc": 0.0, "flash_attention/float32": 0.0,
@@ -556,28 +595,49 @@ def tc_build_check() -> dict:
 
 def retrieval_build_check() -> dict:
     """Spill bytes and registers of the redesigned retrieval kernels:
-    ``pack_kernel``, ``unpack_kernel``, ``bm25_compact_kernel`` and the
-    four ``midgrid_walk_kernel`` instantiations (1-4 blocks per lane per
+    ``pack_kernel``, ``unpack_kernel``, ``bm25_kernel`` (without and with
+    partials), ``bm25_compact_kernel`` and the four
+    ``midgrid_walk_kernel`` instantiations (1-4 blocks per lane per
     step). Fails if one is missing or spills."""
     import re
     out = {}
     for src, kern in (("postings_pack", "pack_kernel"),
                       ("postings_pack", "unpack_kernel"),
+                      ("bm25_blockmax", "bm25_kernel"),
                       ("bm25_blockmax", "bm25_compact_kernel"),
                       ("bm25_blockmax", "midgrid_walk_kernel")):
         for fn, props in _ptxas_functions(src).items():
             # (pack_kernel is not unpack_kernel: a mangled name's length,
             # not a letter, precedes it)
-            m = re.search(r"(?<![A-Za-z_])" + kern + r"(?:ILi(\d+)E)?", fn)
+            m = re.search(r"(?<![A-Za-z_])" + kern + r"(?:IL[ib](\d+)E)?",
+                          fn)
             if m:
                 out[kern + (f"<{m[1]}>" if m[1] else "")] = props
-    want = {"pack_kernel", "unpack_kernel", "bm25_compact_kernel"} | {
+    want = {"pack_kernel", "unpack_kernel", "bm25_kernel<0>",
+            "bm25_kernel<1>", "bm25_compact_kernel"} | {
         f"midgrid_walk_kernel<{n}>" for n in range(1, 5)}
     if set(out) != want or any(p.get("spill_bytes") != 0
                                for p in out.values()):
-        raise AssertionError(f"pack / unpack / compact / midgrid walk: a "
-                             f"kernel is missing from the ptxas report or "
-                             f"spills: {out}")
+        raise AssertionError(f"pack / unpack / bm25_blocks / compact / "
+                             f"midgrid walk: a kernel is missing from the "
+                             f"ptxas report or spills: {out}")
+    return out
+
+
+def simt_build_check() -> dict:
+    """Spill bytes and registers of the SIMT flash kernel's instantiations
+    (f32 and bf16; kNC 1 for D <= 128, 2 above). Fails if the D = 256
+    ones (kNC 2, f32 and bf16) are missing or spill."""
+    import re
+    out = {}
+    for fn, props in _ptxas_functions("flash_attention").items():
+        m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d)E", fn)
+        if m:
+            out[f"{'f32' if m[1] == 'f' else 'bf16'}_NC{m[2]}"] = props
+    if any(out.get(k, {}).get("spill_bytes") != 0
+           for k in ("f32_NC2", "bf16_NC2")):
+        raise AssertionError(f"flash_attention (SIMT): a D = 256 "
+                             f"instantiation is missing or spills: {out}")
     return out
 
 
@@ -1370,15 +1430,14 @@ def phase_timing(rec, launches, err, card: str) -> tuple:
               f"S={rows[-1]['S']} x{rows[-1]['launches']}: "
               f"{rows[-1]['ms']:.4f} ms; loss launches x (ms - bound) "
               f"{loss:.2f} ms", flush=True)
-        if name != "bm25_blocks":
-            # the redesigned kernels shape by shape (pack from 32k blocks)
-            cells = [f"{r['S']} ({r['launches']}: {r['ms']:.4f} / "
-                     f"{r['bound_ms']:.4f}"
-                     + (f"; walk {r['walk_ns_per_step']:.1f} ns/step"
-                        if "walk_ms" in r else "") + ")"
-                     for r in rows if name != "pack" or r["S"] >= 1 << 15]
-            print(f"[timing] on {card}: {name} per S (launches: ms / bound): "
-                  + ", ".join(cells), flush=True)
+        # shape by shape (pack from 32k blocks)
+        cells = [f"{r['S']} ({r['launches']}: {r['ms']:.4f} / "
+                 f"{r['bound_ms']:.4f}"
+                 + (f"; walk {r['walk_ns_per_step']:.1f} ns/step"
+                    if "walk_ms" in r else "") + ")"
+                 for r in rows if name != "pack" or r["S"] >= 1 << 15]
+        print(f"[timing] on {card}: {name} per S (launches: ms / bound): "
+              + ", ".join(cells), flush=True)
     S = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
     for name in ("flash_attention_tc", "flash_attention"):
         fl = next(e for e in line if e["name"] == name)
@@ -1582,8 +1641,11 @@ def main(argv=None) -> int:
           f"instructions in the SASS; spill bytes and registers per "
           f"instantiation {tc_build['instantiations']}", flush=True)
     retrieval_build = retrieval_build_check()
-    print(f"[build] pack, unpack, compact and the midgrid walk: spill "
-          f"bytes and registers {retrieval_build}", flush=True)
+    print(f"[build] pack, unpack, bm25_blocks, compact and the midgrid "
+          f"walk: spill bytes and registers {retrieval_build}", flush=True)
+    simt_build = simt_build_check()
+    print(f"[build] flash_attention (SIMT): spill bytes and registers per "
+          f"instantiation {simt_build}", flush=True)
 
     # f32 matmuls of the LM's reference checks run in full f32 (the
     # defaults, set here so no caller's setting leaks in)
@@ -1695,6 +1757,7 @@ def main(argv=None) -> int:
         "build_s": build_s, "ptxas": {k: v[1] for k, v in
                                       _build.BUILD_LOG.items()},
         "tc_build": tc_build, "retrieval_build": retrieval_build,
+        "simt_build": simt_build,
         "report": report, "checks": checks, "profile": prof,
         "durable": durable, "lm": lm,
         "kernels": line, "kernel_shapes": per_shape,

@@ -55,7 +55,7 @@ SIGNATURES = {
     },
     "bm25_blockmax": {
         "bm25_blocks": (_P, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P,
-                        _P, _P, _L, _P),
+                        _P, _L, _P),
         "bm25_midgrid": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
                          _I, _I, _P, _P, _P, _P, _P, _L, _P),
         "bm25_compact": (_P, _L, _P, _P, _P, _P, _L, _P, _P, _P, _P, _F,
@@ -63,8 +63,8 @@ SIGNATURES = {
         "bm25_midgrid_walk": (_P, _P, _P, _P, _P, _I, _P, _L, _P),
     },
     "flash_attention": {
-        "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _F, _F, _I, _P),
+        "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _F, _I, _P),
     },
     "flash_attention_tc": {
         "flash_attention_tc_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -42,7 +42,8 @@ def bm25_blocks(packed_docs, bw_docs, first_doc, packed_tf, bw_tf, idf,
                 active, *, k1: float = 0.9, b: float = 0.4,
                 partials: bool = False):
     """-> (docids (S,128) int32, tf (S,128) f32, num (S,128) f32), plus the
-    (1, 128) per-lane max of num / (tf + k1(1-b)) with ``partials``."""
+    (1, 128) per-lane max of num / (tf + k1(1-b)) with ``partials``. On
+    CUDA the packed planes must be 16-byte aligned."""
     if not packed_docs.is_cuda:
         if partials:
             return ref.bm25_blocks_partials_ref(
@@ -52,20 +53,20 @@ def bm25_blocks(packed_docs, bw_docs, first_doc, packed_tf, bw_tf, idf,
                                    packed_tf, bw_tf, idf, active, k1)
     S = _check_blocks(packed_docs, bw_docs, first_doc, packed_tf, bw_tf,
                       idf, active)
+    _build.check_aligned(packed_docs, "packed_docs")
+    _build.check_aligned(packed_tf, "packed_tf")
     dev = packed_docs.device
     doc = torch.empty((S, BLOCK), dtype=torch.int32, device=dev)
     tf = torch.empty((S, BLOCK), dtype=torch.float32, device=dev)
     num = torch.empty((S, BLOCK), dtype=torch.float32, device=dev)
-    part_rows = part = None
-    if partials:
-        part_rows = torch.empty((S, BLOCK), dtype=torch.float32, device=dev)
+    part = None
+    if partials:   # the entry point zeroes it before the kernel folds in
         part = torch.empty((1, BLOCK), dtype=torch.float32, device=dev)
     rc = _build.lib("bm25_blockmax").bm25_blocks(
         packed_docs.data_ptr(), bw_docs.data_ptr(), first_doc.data_ptr(),
         packed_tf.data_ptr(), bw_tf.data_ptr(), idf.data_ptr(),
         active.data_ptr(), _f32(k1 + 1.0), _f32(k1 * (1.0 - b)),
         doc.data_ptr(), tf.data_ptr(), num.data_ptr(),
-        None if part_rows is None else part_rows.data_ptr(),
         None if part is None else part.data_ptr(), S,
         _build.stream_ptr(packed_docs))
     _build.check(rc, "bm25_blocks")

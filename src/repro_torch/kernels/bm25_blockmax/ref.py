@@ -76,10 +76,13 @@ def bm25_blocks_partials_ref(packed_docs, bw_docs, first_doc, packed_tf,
                              bw_tf, idf, active, k1: float = 0.9,
                              b: float = 0.4):
     """``bm25_blocks_ref`` plus the TPU kernel's running (1, 128) carry:
-    the per-lane max of the length-independent bound, from a zero init."""
+    the per-lane max of the length-independent bound, from a +0.0 init.
+    The carry's ``jnp.maximum`` orders -0.0 below +0.0, so a lane whose
+    max is a zero of either sign comes out as +0.0 (``+ 0.0`` turns -0.0
+    into +0.0 and leaves every other value as it is)."""
     docids, tf, num = bm25_blocks_ref(packed_docs, bw_docs, first_doc,
                                       packed_tf, bw_tf, idf, active, k1)
-    part = torch.clamp_min(lane_partials_ref(tf, num, k1, b), 0.0)
+    part = torch.clamp_min(lane_partials_ref(tf, num, k1, b), 0.0) + 0.0
     return docids, tf, num, part
 
 

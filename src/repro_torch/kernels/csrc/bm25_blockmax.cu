@@ -14,19 +14,39 @@
 // num = (idf * c) * tf with c = f32(k1 + 1) rounded once on the host (how
 // JAX evaluates idf[:, None] * (k1 + 1.0) * tf). Inactive blocks emit 0.
 //
-// Bound: bytes. A block reads 2 x 512 B of planes plus 20 B of metadata and
-// writes 3 x 512 B of lanes; the arithmetic is a few dozen ops per lane.
-// Design (bm25_blocks, midgrid's decode): one 128-thread CTA per block;
-// the planes are staged through shared memory (one coalesced 512 B load
-// each), the scan is a warp __shfl_up_sync scan plus a 4-slot cross-warp
-// pass, added as unsigned so wraparound matches two's-complement JAX.
-// All float math is IEEE round-to-nearest (__fmul_rn/__fadd_rn/__fdiv_rn,
-// built with --fmad=false), so outputs are bit-identical to the plain
-// version.
+// Bound: bytes. A block reads its live planes (16 B each, at most 2 x 512
+// B) plus 20 B of metadata and writes 3 x 512 B of lanes; the arithmetic
+// is a few dozen ops per lane.
+// Design (bm25_blocks; compact below shares it): one warp takes a block,
+// in a grid-stride loop over a grid of resident CTAs (pack's design,
+// warp_block.cuh). Lane p loads plane p of each stream as one 16-byte
+// load from the dense (S, 32, 4) arrays, only if p < bw: dead planes are
+// never read, as the TPU kernel's plane < bw mask ignores them. Each warp
+// loads the next block's metadata while this block's planes are in
+// flight. The five-stage shuffle transpose leaves gap and tf 32w + t in
+// lane t's word w; the prefix sum is four warp __shfl_up_sync scans (one
+// per word) plus the earlier words' totals, broadcast from lane 31, all in
+// uint32: addition mod 2^32 is exact in any order, so the doc ids wrap as
+// JAX's int32 do. Each output is written as four coalesced 128-byte
+// stores. Inactive blocks (active <= 0, uniform over the warp) read no
+// planes and write 0. No shared memory, no block barrier on the main
+// loop. The loads need 16-byte aligned plane arrays; the wrapper checks
+// it. All float math is IEEE round-to-nearest (__fmul_rn/__fadd_rn/
+// __fdiv_rn, built with --fmad=false), so outputs are bit-identical to the
+// plain version.
 //
-// partials: the per-lane max over every block of num / (tf + k1(1-b)) —
-// order-free, so each block writes its row and one more small kernel
-// reduces the rows.
+// partials: the per-lane max, from a +0.0 start, over every block of
+// num / (tf + k1(1-b)) (0 where the block is inactive or tf is 0), in
+// the same launch. Each thread keeps the running max of its four lanes
+// (t, 32 + t, 64 + t, 96 + t) in registers as int32 bits; at the end the
+// CTA's warps fold theirs into shared memory and the CTA folds its 128
+// into the output, both by integer atomicMax, on an output the entry
+// point zeroes first. That is
+// exact: only values above +0.0 can raise the max, and positive floats
+// order as their int32 bits do (finite idf, so no NaN); a negative value
+// or -0.0 (whose bits are negative ints) never beats the +0.0 start, as
+// under the TPU kernel's jnp.maximum from zeros, which orders -0.0 below
+// +0.0, so an all-zero or all -0.0 lane comes out as +0.0.
 //
 // midgrid: the TPU kernel walks its grid in order, carrying a per-row
 // k-th-best lower bound L (lane j = query row j, seeded from theta). Each
@@ -35,8 +55,11 @@
 // folds each kept block's k-th largest num / (tf + norm_max) into L. A
 // block's k-th value does not depend on L (a skipped block folds 0, which
 // cannot raise L >= 0), so the work splits in three launches:
-//   1. one CTA per block, in parallel: decode (as above) and the block's
-//      k-th value by k-1 rounds of block-wide max + retire-all-ties;
+//   1. one 128-thread CTA per block, in parallel: decode (the planes
+//      staged through shared memory, a 32-step unpack per lane, the scan
+//      a warp scan plus a 4-slot cross-warp pass, in uint32) and the
+//      block's k-th value by k-1 rounds of block-wide max + retire-all-
+//      ties;
 //   2. the walk, one CTA: only the carry's chain stays sequential;
 //   3. one CTA per block: zero the outputs of skipped blocks.
 // The walk is bound by latency, not bytes: S / block_rows dependent
@@ -61,29 +84,18 @@
 // [0, 128) read 0 and fold nowhere. bm25_midgrid_walk launches the walk
 // alone, to time it.
 //
-// compact: the same per-block work, but each selected block's planes come
-// straight from the COMPACT rows (only the live planes of every block,
-// back to back: the bytes the storage codec writes) at its row offset
-// coff. The TPU kernel loads a fixed 32-row window at coff, because
-// Pallas needs static shapes, and masks the next block's rows with
-// plane < bw. Here one warp takes a block, in a grid-stride loop over a
-// grid of resident CTAs (pack's design, warp_block.cuh). Lane p loads row
-// coff + p of each stream as one 16-byte load, only if p < bw and the
-// row lies in the array: exactly bw rows are read, dead planes are zero,
-// and no row past the array is touched. The five-stage shuffle transpose
-// leaves gap and tf 32w + t in lane t's word w. The prefix sum is four
-// warp __shfl_up_sync scans (one per word, independent) plus the earlier
-// words' totals, broadcast from lane 31, all in uint32: addition mod
-// 2^32 is exact in any order, so the doc ids wrap as JAX's int32 do. tf
-// and num keep bm25_blocks' f32 order. Each output is written as four
-// coalesced 128-byte stores (plain stores: the next kernel on the path
-// reads them). Inactive blocks (bucket padding; active <= 0 is uniform
-// over the warp) read no rows and write 0. Each warp loads the next
-// block's metadata while this block's rows are in flight. No shared
-// memory, no block barrier. The loads need 16-byte aligned rows arrays;
-// the wrapper checks it.
-// Bound: bytes, as bm25_blocks, but the planes cost 16 B per live plane
-// instead of 512 B per block.
+// compact: bm25_blocks' work and design, but each selected block's planes
+// come straight from the COMPACT rows (only the live planes of every
+// block, back to back: the bytes the storage codec writes) at its row
+// offset coff. The TPU kernel loads a fixed 32-row window at coff,
+// because Pallas needs static shapes, and masks the next block's rows
+// with plane < bw. Here lane p loads row coff + p of each stream as one
+// 16-byte load, only if p < bw and the row lies in the array: exactly bw
+// rows are read, dead planes are zero, and no row past the array is
+// touched. The transpose, scans, stores and metadata a block ahead are
+// bm25_blocks' (score_block). Plain stores: the next kernel on the path
+// reads them. The rows arrays must be 16-byte aligned; the wrapper checks
+// it. Bound: bytes, as bm25_blocks.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -92,8 +104,8 @@
 namespace {
 
 using warp_block::kBlock;
-constexpr int kCompactThreads = 256;   // 8 warps, a block each
-constexpr int kCompactWarps = kCompactThreads / 32;
+constexpr int kWarpThreads = 256;   // bm25_blocks, compact: 8 warps, a
+constexpr int kWarps = kWarpThreads / 32;  // block each
 constexpr int kMaxStepRows = 128;
 
 __device__ __forceinline__ uint32_t unpack_lane(const uint32_t* words,
@@ -173,23 +185,116 @@ __device__ __forceinline__ Lane decode_lane(
                     slots);
 }
 
-__global__ void bm25_kernel(
-    const uint32_t* __restrict__ pd, const int32_t* __restrict__ bwd,
-    const int32_t* __restrict__ first, const uint32_t* __restrict__ pt,
+struct BlockMeta {
+  int32_t act, bwd, bwt, first;
+  float idf;
+};
+
+// lane p: plane p (16 B) of block b of a dense (S, 32, 4) array if the
+// plane is live, else 0
+__device__ __forceinline__ uint4 load_plane(const uint4* __restrict__ planes,
+                                            long long b, int32_t bw,
+                                            int lane) {
+  return lane < bw ? planes[b * 32 + lane] : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// one active block from its planes in lanes (rd, rt: lane p holds plane
+// p's four words): transpose, scan onto first, write the block's doc, tf
+// and num (lane t: values t, 32 + t, 64 + t, 96 + t at o + 32 w); its tf
+// and num stay in tf[], num[] for the caller
+__device__ __forceinline__ void score_block(
+    uint4 rd, uint4 rt, int32_t first, float idf, float c, int lane,
+    long long o, int32_t* __restrict__ doc_out, float* __restrict__ tf_out,
+    float* __restrict__ num_out, float (&tf)[4], float (&num)[4]) {
+  uint32_t gap[4] = {rd.x, rd.y, rd.z, rd.w};
+  uint32_t tfu[4] = {rt.x, rt.y, rt.z, rt.w};
+  warp_block::transpose32x4(gap, lane);
+  warp_block::transpose32x4(tfu, lane);
+  // inclusive scan of each word across the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const uint32_t n = __shfl_up_sync(warp_block::kFull, gap[w], off);
+      if (lane >= off) gap[w] += n;
+    }
+  }
+  const float ic = __fmul_rn(idf, c);
+  uint32_t carry = static_cast<uint32_t>(first);
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const uint32_t total = __shfl_sync(warp_block::kFull, gap[w], 31);
+    tf[w] = __uint2float_rn(tfu[w]);
+    num[w] = __fmul_rn(ic, tf[w]);
+    doc_out[o + 32 * w] = static_cast<int32_t>(carry + gap[w]);
+    tf_out[o + 32 * w] = tf[w];
+    num_out[o + 32 * w] = num[w];
+    carry += total;
+  }
+}
+
+__device__ __forceinline__ void zero_block(long long o, int32_t* doc_out,
+                                           float* tf_out, float* num_out) {
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    doc_out[o + 32 * w] = 0;
+    tf_out[o + 32 * w] = 0.0f;
+    num_out[o + 32 * w] = 0.0f;
+  }
+}
+
+template <bool kPartials>
+__global__ void __launch_bounds__(kWarpThreads) bm25_kernel(
+    const uint4* __restrict__ pd, const int32_t* __restrict__ bwd,
+    const int32_t* __restrict__ first, const uint4* __restrict__ pt,
     const int32_t* __restrict__ bwt, const float* __restrict__ idf,
     const int32_t* __restrict__ active, float c, float min_norm,
     int32_t* __restrict__ doc_out, float* __restrict__ tf_out,
-    float* __restrict__ num_out, float* __restrict__ part_rows) {
-  const long long b = blockIdx.x;
-  const int t = threadIdx.x;
-  const Lane r = decode_lane(pd, bwd, first, pt, bwt, idf, active, c, b);
-  const long long o = b * kBlock + t;
-  doc_out[o] = r.act ? r.doc : 0;
-  tf_out[o] = r.act ? r.tf : 0.0f;
-  num_out[o] = r.act ? r.num : 0.0f;
-  if (part_rows != nullptr) {
-    part_rows[o] = (r.act && r.tf > 0.0f)
-        ? __fdiv_rn(r.num, __fadd_rn(r.tf, min_norm)) : 0.0f;
+    float* __restrict__ num_out, int* __restrict__ part_out, long long S) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  long long b = static_cast<long long>(blockIdx.x) * kWarps
+      + (threadIdx.x >> 5);
+  int part[4] = {0, 0, 0, 0};  // this lane's running max, as int32 bits
+  BlockMeta m{};
+  if (b < S) m = {active[b], bwd[b], bwt[b], first[b], idf[b]};
+  for (; b < S; b += stride) {  // b is uniform over the warp
+    uint4 rd = make_uint4(0u, 0u, 0u, 0u), rt = rd;
+    if (m.act > 0) {
+      rd = load_plane(pd, b, m.bwd, lane);
+      rt = load_plane(pt, b, m.bwt, lane);
+    }
+    BlockMeta nm{};
+    const long long nb = b + stride;
+    if (nb < S) nm = {active[nb], bwd[nb], bwt[nb], first[nb], idf[nb]};
+    const long long o = b * kBlock + lane;
+    if (m.act <= 0) {
+      zero_block(o, doc_out, tf_out, num_out);
+    } else {
+      float tf[4], num[4];
+      score_block(rd, rt, m.first, m.idf, c, lane, o, doc_out, tf_out,
+                  num_out, tf, num);
+      if (kPartials) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float p = tf[w] > 0.0f
+              ? __fdiv_rn(num[w], __fadd_rn(tf[w], min_norm)) : 0.0f;
+          part[w] = max(part[w], __float_as_int(p));
+        }
+      }
+    }
+    m = nm;
+  }
+  if (kPartials) {
+    __shared__ int cta[kBlock];
+    for (int i = threadIdx.x; i < kBlock; i += kWarpThreads) cta[i] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      if (part[w] > 0) atomicMax(&cta[32 * w + lane], part[w]);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kBlock; i += kWarpThreads)
+      if (cta[i] > 0) atomicMax(&part_out[i], cta[i]);
   }
 }
 
@@ -216,7 +321,7 @@ __device__ __forceinline__ uint4 load_row(const uint4* __restrict__ rows,
                                                  : make_uint4(0u, 0u, 0u, 0u);
 }
 
-__global__ void __launch_bounds__(kCompactThreads) bm25_compact_kernel(
+__global__ void __launch_bounds__(kWarpThreads) bm25_compact_kernel(
     const uint4* __restrict__ cpd, long long n_rows_d,
     const int32_t* __restrict__ coffd, const int32_t* __restrict__ bwd,
     const int32_t* __restrict__ first, const uint4* __restrict__ cpt,
@@ -226,8 +331,8 @@ __global__ void __launch_bounds__(kCompactThreads) bm25_compact_kernel(
     int32_t* __restrict__ doc_out, float* __restrict__ tf_out,
     float* __restrict__ num_out, long long S) {
   const int lane = threadIdx.x & 31;
-  const long long stride = static_cast<long long>(gridDim.x) * kCompactWarps;
-  long long b = static_cast<long long>(blockIdx.x) * kCompactWarps
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  long long b = static_cast<long long>(blockIdx.x) * kWarps
       + (threadIdx.x >> 5);
   CompactMeta m{};
   if (b < S) m = load_meta(active, coffd, cofft, bwd, bwt, first, idf, b);
@@ -242,49 +347,14 @@ __global__ void __launch_bounds__(kCompactThreads) bm25_compact_kernel(
       nm = load_meta(active, coffd, cofft, bwd, bwt, first, idf, b + stride);
     const long long o = b * kBlock + lane;
     if (m.act <= 0) {
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        doc_out[o + 32 * w] = 0;
-        tf_out[o + 32 * w] = 0.0f;
-        num_out[o + 32 * w] = 0.0f;
-      }
+      zero_block(o, doc_out, tf_out, num_out);
     } else {
-      uint32_t gap[4] = {rd.x, rd.y, rd.z, rd.w};
-      uint32_t tfu[4] = {rt.x, rt.y, rt.z, rt.w};
-      warp_block::transpose32x4(gap, lane);
-      warp_block::transpose32x4(tfu, lane);
-      // inclusive scan of each word across the warp
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const uint32_t n = __shfl_up_sync(warp_block::kFull, gap[w], off);
-          if (lane >= off) gap[w] += n;
-        }
-      }
-      const float ic = __fmul_rn(m.idf, c);
-      uint32_t carry = static_cast<uint32_t>(m.first);
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const uint32_t total = __shfl_sync(warp_block::kFull, gap[w], 31);
-        const float tf = __uint2float_rn(tfu[w]);
-        doc_out[o + 32 * w] = static_cast<int32_t>(carry + gap[w]);
-        tf_out[o + 32 * w] = tf;
-        num_out[o + 32 * w] = __fmul_rn(ic, tf);
-        carry += total;
-      }
+      float tf[4], num[4];
+      score_block(rd, rt, m.first, m.idf, c, lane, o, doc_out, tf_out,
+                  num_out, tf, num);
     }
     m = nm;
   }
-}
-
-// per-lane max over the S rows, starting from 0 (the Pallas carry's init)
-__global__ void lane_max_kernel(const float* __restrict__ rows,
-                                float* __restrict__ out, long long S) {
-  const int t = threadIdx.x;
-  float m = 0.0f;
-  for (long long s = 0; s < S; ++s) m = fmaxf(m, rows[s * kBlock + t]);
-  out[t] = m;
 }
 
 __global__ void midgrid_decode_kernel(
@@ -515,30 +585,34 @@ __global__ void midgrid_zero_kernel(const int32_t* __restrict__ skip,
 
 extern "C" {
 
-// -> doc_out (S,128) i32, tf_out/num_out (S,128) f32; with part_rows
-// (S,128) f32 scratch and part_out (128,) f32 non-null, also the partials
+// -> doc_out (S,128) i32, tf_out/num_out (S,128) f32 from the dense
+// planes pd, pt (S, 32, 4), both 16-byte aligned; with part_out (128,)
+// non-null, also the partials there (as f32 bits)
 int bm25_blocks(const void* pd, const void* bwd, const void* first,
                 const void* pt, const void* bwt, const void* idf,
                 const void* active, float c, float min_norm, void* doc_out,
-                void* tf_out, void* num_out, void* part_rows, void* part_out,
-                long long S, void* stream) {
+                void* tf_out, void* num_out, void* part_out, long long S,
+                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S > 0) {
-    bm25_kernel<<<static_cast<unsigned>(S), kBlock, 0, st>>>(
-        static_cast<const uint32_t*>(pd), static_cast<const int32_t*>(bwd),
-        static_cast<const int32_t*>(first), static_cast<const uint32_t*>(pt),
-        static_cast<const int32_t*>(bwt), static_cast<const float*>(idf),
-        static_cast<const int32_t*>(active), c, min_norm,
-        static_cast<int32_t*>(doc_out), static_cast<float*>(tf_out),
-        static_cast<float*>(num_out), static_cast<float*>(part_rows));
-    const cudaError_t e = cudaGetLastError();
+  int* part = static_cast<int*>(part_out);
+  if (part != nullptr) {
+    const cudaError_t e = cudaMemsetAsync(part, 0, kBlock * sizeof(int), st);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (part_out != nullptr) {
-    lane_max_kernel<<<1, kBlock, 0, st>>>(
-        static_cast<const float*>(part_rows), static_cast<float*>(part_out),
-        S);
-  }
+  if (S <= 0) return static_cast<int>(cudaGetLastError());
+  static int resident[2] = {0, 0};
+  const auto kern = part != nullptr ? bm25_kernel<true> : bm25_kernel<false>;
+  unsigned grid = 0;
+  const cudaError_t e = warp_block::grid_for(
+      kern, kWarpThreads, S, &resident[part != nullptr], &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<grid, kWarpThreads, 0, st>>>(
+      static_cast<const uint4*>(pd), static_cast<const int32_t*>(bwd),
+      static_cast<const int32_t*>(first), static_cast<const uint4*>(pt),
+      static_cast<const int32_t*>(bwt), static_cast<const float*>(idf),
+      static_cast<const int32_t*>(active), c, min_norm,
+      static_cast<int32_t*>(doc_out), static_cast<float*>(tf_out),
+      static_cast<float*>(num_out), part, S);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -555,9 +629,9 @@ int bm25_compact(const void* cpd, long long n_rows_d, const void* coffd,
     static int resident = 0;
     unsigned grid = 0;
     const cudaError_t e = warp_block::grid_for(
-        bm25_compact_kernel, kCompactThreads, S, &resident, &grid);
+        bm25_compact_kernel, kWarpThreads, S, &resident, &grid);
     if (e != cudaSuccess) return static_cast<int>(e);
-    bm25_compact_kernel<<<grid, kCompactThreads, 0,
+    bm25_compact_kernel<<<grid, kWarpThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint4*>(cpd), n_rows_d,
         static_cast<const int32_t*>(coffd), static_cast<const int32_t*>(bwd),

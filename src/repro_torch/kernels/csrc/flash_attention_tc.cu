@@ -78,7 +78,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tma.cuh"
+
 namespace {
+
+using namespace tma;
 
 constexpr int kBM = 128;          // q rows per CTA, 64 per warpgroup
 constexpr int kThreads = 256;     // two warpgroups
@@ -86,65 +90,6 @@ constexpr int kKStages = 3;       // k ring depth
 constexpr int kVStages = 2;       // v ring depth
 constexpr float kNeg = -0.7f * 3.402823466e38f;
 constexpr float kLog2e = 1.4426950408889634f;
-// host return codes beside cudaError_t's: no cuTensorMapEncodeTiled, or
-// kEncodeFailed + its CUresult
-constexpr int kNoEncode = 9000;
-constexpr int kEncodeFailed = 10000;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` of the barrier has completed; a
-// wait of over ~2^34 cycles (seconds) traps, so a protocol fault ends the
-// launch with an error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  const long long t0 = clock64();
-  do {
-    if (clock64() - t0 > (1ll << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map (coordinates innermost first) into shared
-// memory; its bytes count against the barrier's expected transaction
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets (each >> 4)
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
@@ -750,58 +695,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled lives in the driver (libcuda); the runtime hands
-// out its entry point, so the library needs no link flag
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-#endif
-  }
-  return fn;
-}
-
 // a (B, S, NH, D) bf16 tensor as a 4-D map (D, NH, S, B) with its real
 // strides; boxes of 64 columns x 1 head x `rows` rows, 128-byte swizzle,
 // zeros outside the tensor
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int NH, int D,
              int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(NH),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(NH) * D * 2,
-                                 static_cast<cuuint64_t>(S) * NH * D * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return kNoEncode;
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+  return tma::map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, B, S, NH,
+                     D, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int kDP, int kBN>

@@ -83,9 +83,14 @@ def launch(kernel: str, q, k, v, *, causal: bool = True, window: int = 0,
     if out.numel() == 0:
         return out
     source, entry = ROUTES[kernel]
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Skv, H, KVH, D, int(causal), int(window), float(softcap),
-            1.0 / math.sqrt(D)]
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if not tc:
+        # the SIMT kernel's persistent CTAs pull work items from this
+        # counter
+        counter = torch.zeros(1, dtype=torch.int32, device=q.device)
+        args.append(counter.data_ptr())
+    args += [B, Sq, Skv, H, KVH, D, int(causal), int(window),
+             float(softcap), 1.0 / math.sqrt(D)]
     if not tc:
         args.append(_DTYPES[q.dtype])
     rc = getattr(_build.lib(source), entry)(*args, _build.stream_ptr(q))

@@ -14,6 +14,10 @@ oracles).
   block, the next block's metadata loaded early, live rows only, both
   streams transposed, four warp scans plus lane 31's carry in uint32,
   and the plain version's f32 order.
+* bm25_blocks (``bm25_blockmax.cu::bm25_kernel``): compact's design over
+  the dense (S, 32, 4) planes, live planes only (garbage in dead planes
+  never read); with partials, each warp's per-lane running max as int32
+  bits, folded by the CTA and then into a zeroed output by atomicMax.
 * midgrid (``csrc/bm25_blockmax.cu::midgrid_walk_kernel``): the walk over
   staged chunks, with the floor after the first step and each step's fold
   taken as int32 ``atomicMax`` on the floats' bits in a shuffled order.
@@ -27,6 +31,7 @@ import pytest
 import torch
 
 from repro.kernels.bm25_blockmax import ref as jbref
+from repro.kernels.bm25_blockmax.kernel import bm25_blocks_pallas
 from repro.kernels.postings_pack import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels.bm25_blockmax import ref as bref
@@ -209,7 +214,16 @@ def compact_emulated(rows_d, coff_d, bw_d, first, rows_t, coff_t, bw_t, idf,
                      rows[np.clip(row, 0, rows.shape[0] - 1)], np.uint32(0))
         return transpose32(x.transpose(0, 2, 1))  # word w, lane t: 32w+t
 
-    gap, tfu = planes(rows_d, coff_d, bw_d), planes(rows_t, coff_t, bw_t)
+    return _score(planes(rows_d, coff_d, bw_d), planes(rows_t, coff_t, bw_t),
+                  first, idf, act, k1)
+
+
+def _score(gap, tfu, first, idf, act, k1: float):
+    """``score_block`` where ``act``, ``zero_block`` elsewhere: gap and tf
+    words (S, 4, 32) uint32 (word w of lane t: value 32w + t) -> four warp
+    scans plus lane 31's carry in uint32, tf and num in the plain version's
+    f32 order; (doc int32, tf f32, num f32), each (S, 128)."""
+    S = gap.shape[0]
     for off in (1, 2, 4, 8, 16):         # __shfl_up_sync, per word
         gap = np.where(LANE >= off, gap + gap[..., np.maximum(LANE - off, 0)],
                        gap)
@@ -283,6 +297,152 @@ def test_compact_emulation_matches_compact_refs(S, n_warps):
         assert (args[8].numpy() < 0).any()
 
 
+# --- bm25_blocks ----------------------------------------------------------
+
+def bm25_emulated(pd, bwd, first, pt, bwt, idf, active, k1: float, b: float,
+                  n_warps: int, cta_warps: int):
+    """``bm25_kernel<true>`` with ``n_warps`` warps in CTAs of
+    ``cta_warps``: uint32 planes (S, 32, 4), per-block metadata (S,) ->
+    (doc, tf, num) each (S, 128) and the (1, 128) partials."""
+    S = pd.shape[0]
+    _grid_stride(S, n_warps, 1)          # metadata loaded one step ahead
+    act = active > 0
+
+    def planes(packed, bw):               # lane p: plane p if p < bw
+        live = act[:, None] & (LANE[None, :] < bw[:, None])
+        x = np.where(live[:, :, None], packed, np.uint32(0))
+        return transpose32(x.transpose(0, 2, 1))
+    doc, tf, num = _score(planes(pd, bwd), planes(pt, bwt), first, idf, act,
+                          k1)
+    min_norm = np.float32(k1 * (1.0 - b))   # the wrapper's f32 rounding
+    with np.errstate(divide="ignore", invalid="ignore"):
+        part = np.where(tf > 0, num / (tf + min_norm), np.float32(0))
+    bits = part.astype(np.float32).view(np.int32)
+    # each warp's lanes: a running int32 max from 0 over its blocks
+    warp_max = np.zeros((n_warps, 128), np.int32)
+    np.maximum.at(warp_max, np.arange(S) % n_warps, bits)
+    # atomicMax of the values > 0 into the CTA's shared row (zeroed), then
+    # of the CTA's values > 0 into the output (zeroed by the entry point)
+    cta = np.zeros((-(-n_warps // cta_warps), 128), np.int32)
+    for g in range(n_warps):
+        row = cta[g // cta_warps]
+        row[:] = np.where(warp_max[g] > 0, np.maximum(row, warp_max[g]), row)
+    out = np.zeros(128, np.int32)
+    for row in cta:
+        out = np.where(row > 0, np.maximum(out, row), out)
+    return doc, tf, num, out.view(np.float32)[None, :]
+
+
+def _bm25_case(S: int, seed: int, signed_zero: bool = False):
+    """Packed gap and tf blocks at bw 0, 1, 32 and random widths, bw 33 /
+    255 headers on some bw-32 blocks, random nonzero garbage in every dead
+    plane, first doc ids that carry the prefix sum past 2^31 and 2^32,
+    inactive blocks (0 and negative). With ``signed_zero``: idf -0.0 or
+    negative on some blocks, blocks whose tf is all 0, and lanes 0-7 live
+    only in blocks of idf -0.0 or < 0, so their partial max is a zero."""
+    rng = np.random.default_rng(seed)
+    arrays = []
+    for name in ("docs", "tf"):
+        vals = rng.integers(0, 2 ** 32, (S, 128), dtype=np.uint64)
+        vals >>= rng.integers(0, 33, (S, 1)).astype(np.uint64)
+        vals = vals.astype(np.uint32)
+        if name == "tf":
+            vals %= np.uint32(40)
+        vals[0] = 0
+        if S > 2:
+            vals[1], vals[2] = 0xFFFFFFFF, 1
+        packed, bw = pref.pack_ref(_t(vals))
+        packed = packed.numpy().view(np.uint32).copy()
+        bw = bw.numpy().copy()
+        dead = np.arange(32)[None, :] >= bw[:, None]
+        junk = rng.integers(1, 2 ** 32, packed.shape, dtype=np.uint64)
+        packed[dead] = junk.astype(np.uint32)[dead]
+        wide = np.flatnonzero(bw == 32)
+        bw[wide[::3]], bw[wide[1::3]] = 33, 255
+        arrays += [packed, bw.astype(np.int32)]
+    first = rng.integers(-(2 ** 31), 2 ** 31, S).astype(np.int32)
+    first[:min(S, 3)] = 2 ** 31 - 5     # block 2 (gaps 1) wraps past 2^31
+    idf = (rng.random(S) * 8).astype(np.float32)
+    active = (rng.random(S) < 0.8).astype(np.int32)
+    active[rng.random(S) < 0.1] = -2
+    active[:min(S, 3)] = 1
+    (pd, bwd), (pt, bwt) = arrays[:2], arrays[2:]
+    if signed_zero:
+        idf[rng.random(S) < 0.2] = -0.0
+        idf[rng.random(S) < 0.1] = -1.5
+        zero_tf = rng.random(S) < 0.1
+        pt[zero_tf], bwt[zero_tf] = 0, 0
+        # lanes 0-7: tf > 0 only where idf is -0.0 or negative; block 0
+        # (active, idf -0.0) has tf > 0 there, so a max over the blocks in
+        # order meets -0.0 before any +0.0
+        idf[0] = -0.0
+        pos = ~((idf < 0) | np.signbit(idf))
+        tf_words = pref.unpack_ref(_t(pt), torch.from_numpy(bwt)).numpy()
+        tf_words = tf_words.view(np.uint32).copy()
+        tf_words[pos, :8] = 0
+        tf_words[0, :8] = 3
+        pt, bwt = (a.numpy() for a in pref.pack_ref(_t(tf_words)))
+        pt = pt.view(np.uint32)
+    return pd, bwd, first, pt, bwt, idf, active
+
+
+def _bm25_refs(args, partials: bool):
+    """The port's plain version and the JAX kernel (interpret mode) on the
+    same arrays."""
+    tw = [_t(a) if a.dtype == np.uint32 else torch.from_numpy(a)
+          for a in args]
+    S = args[0].shape[0]
+    rows = max(d for d in range(1, 65) if S % d == 0)
+    jax_out = bm25_blocks_pallas(*[jnp.asarray(a) for a in args], k1=0.9,
+                                 b=0.4, block_rows=rows, interpret=True,
+                                 partials=partials)
+    if partials:
+        return bref.bm25_blocks_partials_ref(*tw, 0.9, 0.4), jax_out
+    return bref.bm25_blocks_ref(*tw, 0.9), jax_out
+
+
+def _bit_equal(got, want, j_want):
+    for g, w, j in zip(got, want, j_want):
+        w, j = w.numpy(), np.asarray(j)
+        assert g.dtype == w.dtype == j.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
+        np.testing.assert_array_equal(g.view(np.uint32), j.view(np.uint32))
+
+
+@pytest.mark.parametrize("S,n_warps,cta_warps", [
+    (1, 8, 8), (37, 8, 8), (37, 40, 8), (300, 24, 8), (300, 7, 4)])
+def test_bm25_blocks_emulation_matches_refs(S, n_warps, cta_warps):
+    args = _bm25_case(S, S * 5 + n_warps)
+    got = bm25_emulated(*args, k1=0.9, b=0.4, n_warps=n_warps,
+                        cta_warps=cta_warps)
+    _bit_equal(got[:3], *_bm25_refs(args, partials=False))
+    if S > 4:      # garbage in dead planes, wrapped ids, inactive zeros
+        assert (args[0][args[1] < 32] != 0).any()
+        assert (got[0][2] < 0).any() and (got[0][2] > 0).any()
+        assert (got[1][args[6] <= 0] == 0).all() and (args[6] < 0).any()
+
+
+@pytest.mark.parametrize("S,n_warps,cta_warps", [
+    (8, 8, 8), (64, 16, 8), (300, 40, 8), (300, 9, 2)])
+def test_bm25_partials_emulation_matches_refs(S, n_warps, cta_warps):
+    args = _bm25_case(S, S * 11 + n_warps, signed_zero=True)
+    got = bm25_emulated(*args, k1=0.9, b=0.4, n_warps=n_warps,
+                        cta_warps=cta_warps)
+    want, j_want = _bm25_refs(args, partials=True)
+    _bit_equal(got, want, j_want)
+    part = got[3][0]
+    # lanes 0-7 saw only -0.0 and negative partials, -0.0 first: +0.0
+    # from the +0.0 start (a plain max over the blocks would give -0.0);
+    # the rest saw positive ones
+    assert (part[:8].view(np.uint32) == 0).all()
+    lanes = np.where(got[1] > 0, got[2] / (got[1] + np.float32(0.9 * 0.6)),
+                     np.float32(0))[:, :8]
+    assert np.signbit(lanes[0]).all() and (lanes <= 0).all()
+    assert (part[8:] > 0).all()
+    tf = got[1]
+    assert ((tf == 0).all(axis=1) & (args[6] > 0)).any()   # all-zero rows
+
+
 # --- both: 16-byte alignment ----------------------------------------------
 
 def test_misaligned_views_are_refused():
@@ -296,22 +456,24 @@ def test_misaligned_views_are_refused():
             _build.check_aligned(view, "packed")
 
 
+@pytest.mark.parametrize("header,includers", [
+    ("warp_block.cuh", {"postings_pack", "bm25_blockmax"}),
+    ("tma.cuh", {"flash_attention", "flash_attention_tc"})])
 def test_editing_the_shared_header_renames_its_includers_only(
-        tmp_path, monkeypatch):
+        tmp_path, monkeypatch, header, includers):
     before = {n: _build._target(n) for n in _build.SOURCES}
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for f in CSRC.iterdir():
         (csrc / f.name).write_bytes(f.read_bytes())
-    with open(csrc / "warp_block.cuh", "a") as f:
+    with open(csrc / header, "a") as f:
         f.write("// edited\n")
     monkeypatch.setattr(_build, "CSRC", csrc)
     after = {n: _build._target(n) for n in _build.SOURCES}
     for n in _build.SOURCES:
-        includes = '#include "warp_block.cuh"' in (CSRC / f"{n}.cu"
-                                                   ).read_text()
+        includes = f'#include "{header}"' in (CSRC / f"{n}.cu").read_text()
         assert (after[n] != before[n]) == includes, n
-    assert sum(after[n] != before[n] for n in after) == 2
+    assert {n for n in after if after[n] != before[n]} == includers
 
 
 # --- midgrid --------------------------------------------------------------
