@@ -81,8 +81,32 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               index one more batch with the WAL and no commit, drop that
               indexer, reopen the directory and check that the WAL
               replays the acked docs and a query batch returns what it
-              returned before the drop;
-10. timing  — each kernel on the very inputs the paths gave it, at every
+              returned before the drop; its ``envelope_report()``;
+10. envelope — the paper's experiment at CONFIG width: per media pair
+              (isolated ``nas -> ssd``, two throttles; shared ``ssd ->
+              ssd``, one), 4 batches spooled into a throttled RAM source,
+              ``index_spooled`` into a throttled ``FSDirectory``,
+              ``finalize()``, ``envelope_report()``; the commit recovered
+              on the card serves 32 queries (pruned == exhaustive). Gates:
+              the measured source bytes are the spooled bytes, the encoded
+              bytes are the live segment files' bytes, and the isolated
+              pair's measured GB/min beats the shared pair's; then
+              ``calibrate()`` refitted with both runs;
+11. steady  — serving while indexing, open loop: an ``Indexer`` with the
+              refresh daemon (1 s) and 2 merge threads, a cached
+              ``QueryScheduler`` attached; 4 seed batches, then Poisson
+              arrivals at half [slice]'s QPS while 36 batches are
+              ingested and 8 served docs deleted every 4th tick, a tick
+              that flushed or deleted ending when the daemon has
+              swapped in a new generation. Gates:
+              every arrival completed, none shed, >= 10 daemon refreshes
+              and served generations, >= 1 merge on 2 threads, and after
+              ``close()`` + ``refresh()`` pruned == exhaustive, true
+              scores, no deleted doc served, the last generation's cache
+              entries == uncached searches. Latency is reported for all
+              arrivals and for the cache misses alone;
+12. examples — ``examples/torch_*.py`` on the card, each must exit 0;
+13. timing  — each kernel on the very inputs the paths gave it, at every
               shape it was launched with (blocks; for flash attention
               batch, length and window): held against its plain version
               once more, then its median device time over 21 launches
@@ -104,8 +128,10 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               of block_rows blocks.
 
 In every counted run (the LM path, the f32 LM prefills, the slice, the
-durable path's indexing + recovery + serving and its WAL run) the launch
-counts are zeroed just before and read just after, never around a
+durable path's indexing + recovery + serving and its WAL run, each
+envelope pair's indexing + recovery + serving, and steady's whole run)
+the launch counts are zeroed just before and read just after (after
+every thread the run started has been joined), never around a
 comparison, and every kernel of the path must have launched.
 
 The durable path runs at ``--docs`` (2^20 by default) and may not be cut;
@@ -113,8 +139,12 @@ the in-memory slice runs at ``--docs // SLICE_CUT``: at 2^20 docs each,
 the two paths took 726.7-864.8 s together and the script 835.3-1002.9 s
 of its 1200 s limit on an NVIDIA H100 80GB HBM3 at a 700.00 W power
 limit, and only the earlier path's depth may be cut; with the LM phases
-and the slice at 2^19 the script took 916.8 s, so the slice runs at
-2^18.
+and the slice at 2^19 the script took 916.8 s, so the slice ran at
+2^18. With [envelope], [steady] and [examples] added the script's own
+total was 986.2 s with the slice at 2^18 and 896.9-897.4 s at 2^17 (the
+same card), so the slice runs at 2^17. [steady]'s arrivals are paced at half the
+slice's QPS (201.75 at 2^18, 603.43 at 2^17): at 2^17 they outrun what
+[steady] serves while it indexes, and its tail shows it.
 
 Prints the kernels as one JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Details (ptxas report, every timing,
@@ -137,7 +167,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12     # dense tensor-core peak
-SLICE_CUT = 4               # the in-memory slice runs at --docs // SLICE_CUT
+SLICE_CUT = 8               # the in-memory slice runs at --docs // SLICE_CUT
 
 
 def _fail(msg: str) -> int:
@@ -205,6 +235,12 @@ def _device_ms(fn, n: int = 21, warm: int = 2) -> float:
             return float(sorted(a.elapsed_time(b) for a, b in ev)[n // 2])
         spin_ms *= 4
     raise AssertionError("the host never queued the calls ahead of the card")
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _max_abs_err(got, want) -> float:
@@ -996,10 +1032,14 @@ class ShapeRecorder:
     keeps a copy of the first call's arguments at each S, so
     ``phase_timing`` can time every kernel on the inputs the paths gave
     it. Flash attention's calls go under the kernel ``ops.route`` picks
-    for them. The launch counts stay the wrappers' own."""
+    for them. The launch counts stay the wrappers' own. Calls come from
+    several threads at once (ingest, merges, the refresh daemon, serving),
+    so ``counts`` and ``args`` change under a lock."""
 
     def __init__(self):
         import collections
+        import threading
+        self._lock = threading.Lock()
         from repro_torch.core import query
         from repro_torch.kernels.postings_pack import ops as pops
         from repro_torch.models import transformer
@@ -1022,11 +1062,12 @@ class ShapeRecorder:
             name = site if site != "flash" else route(args[0].dtype,
                                                       args[0].shape[-1])
             S = _leading(name, args, kwargs)
-            self.counts[name][S] += 1
-            if S not in self.args[name]:
-                self.args[name][S] = (
-                    tuple(a.clone() if torch.is_tensor(a) else a
-                          for a in args), dict(kwargs))
+            with self._lock:
+                self.counts[name][S] += 1
+                if S not in self.args[name]:
+                    self.args[name][S] = (
+                        tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args), dict(kwargs))
             return fn(*args, **kwargs)
         return recorded
 
@@ -1066,8 +1107,9 @@ def _served_batches(done, slots: int):
 
 def phase_durable(args, dev, card, rec, del_ids, upd_ids,
                   k: int = 10) -> tuple:
-    """The durable path (phase 7 of the module docstring). Returns its
-    report and the launch counts of its two counted runs, summed."""
+    """The durable path (phase 9 of the module docstring). Returns its
+    report, the launch counts of its two counted runs, summed, and its
+    corpus batches (the later phases index the same corpus)."""
     import dataclasses
     import shutil
     import numpy as np
@@ -1146,6 +1188,8 @@ def phase_durable(args, dev, card, rec, del_ids, upd_ids,
             done, lat = serve._serve(sched, reqs, dev)
             dt = time.perf_counter() - t0
             launches = dict(_build.LAUNCHES)
+        env_rep = ix.envelope_report()
+        rep["envelope"] = env_rep
         print(f"[durable] on {card}: {rep['docs']} docs to durable at "
               f"{rep['docs_per_s']:.0f} docs/s (index {rep['index_s']:.2f}s"
               f" + commit {rep['commit_s']:.2f}s; corpus generation "
@@ -1167,6 +1211,17 @@ def phase_durable(args, dev, card, rec, del_ids, upd_ids,
               flush=True)
         _require(launches, ("pack", "unpack", "bm25_blocks_compact"),
                  "the durable path")
+        print(f"[durable] envelope_report on {card}: "
+              f"{env_rep['bytes_read_measured']} bytes indexed, "
+              f"{env_rep['bytes_written_measured']} written to the local "
+              f"disk ({env_rep['index_bytes_encoded']} live encoded) in "
+              f"{env_rep['t_io_measured_s']:.2f}s of measured write + read "
+              f"wall time: {env_rep['gb_per_min_measured']:.3f} GB/min "
+              f"measured; modeled {env_rep['gb_per_min_modeled']:.3f} "
+              f"GB/min for ceph->ssd in the paper's media units (bound "
+              f"{env_rep['bound']}); alpha_measured "
+              f"{env_rep['alpha_measured']:.4f}, {env_rep['n_merges']} "
+              f"merges; WAL appends {env_rep['wal_appends']}", flush=True)
 
         # --- checks (not counted): dense layout, exhaustive ------------
         t0 = time.perf_counter()
@@ -1246,7 +1301,579 @@ def phase_durable(args, dev, card, rec, del_ids, upd_ids,
             launches[name] += n
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return rep, launches, batches
+
+
+ENVELOPE_PAIRS = (("nas", "ssd"), ("ssd", "ssd"))   # isolated, shared
+ENVELOPE_BATCHES = 4                # of --batch-docs: 2^16 docs a pair
+STEADY_SEED_BATCHES = 4             # indexed and refreshed before serving
+STEADY_TICKS = 36                   # churn ticks, one batch each
+STEADY_DELETE_EVERY = 4             # every 4th tick deletes ...
+STEADY_DELETES = 8                  # ... this many served docs
+STEADY_MIN_REFRESHES = 10           # daemon refreshes, and generations
+# 4-term queries the arrivals draw, drawn as [slice] draws its queries:
+# a hot set that repeats, so the result cache answers most arrivals.
+# [slice]'s 1024 distinct queries at its half rate would send most
+# arrivals to the scorers of an index five times [slice]'s size, where
+# closed-loop serving reaches well under that rate (about 200 QPS at 2^18
+# docs, 33 at 2^20). The misses' own tail is reported beside the whole.
+STEADY_POOL = 64
+STEADY_SECONDS = 90.0               # of arrivals
+# s between ticks, never 0: a churn loop that spins once its ticks are in
+# starves the serving thread of the GIL, and serving all but stops
+STEADY_TICK_GAP = 0.25
+STEADY_SURFACE_S = 60.0             # the longest a change may take to surface
+EXAMPLES = ("torch_quickstart.py", "torch_index_corpus.py",
+            "torch_serve_retrieval.py")
+
+
+def _live_file_bytes(path) -> int:
+    """Bytes on the target of the newest commit's segments, from the
+    file system: each segment's four files and its current ``.liv``."""
+    from repro_torch.storage import (SEGMENT_SUFFIXES, FSDirectory,
+                                     list_commits, read_commit)
+    d = FSDirectory(str(path))
+    meta = read_commit(d, f"segments_{list_commits(d)[0]}")
+    total = 0
+    for base in meta["segments"]:
+        names = [base + sfx for sfx in SEGMENT_SUFFIXES]
+        if meta["liv"].get(base):
+            names.append(meta["liv"][base])
+        total += sum(os.path.getsize(Path(path) / n) for n in names)
+    return total
+
+
+def envelope_gates(reps: dict, spooled: dict, file_bytes: dict) -> float:
+    """The [envelope] gates on each pair's ``envelope_report()``: the
+    source bytes it measured are the spooled bytes, the encoded bytes of
+    the live segments are their files' bytes on the target, and the
+    isolated pair beats the shared one (the paper's headline, in throttle
+    device time). Returns the isolation speedup."""
+    bad = []
+    for pair, rep in reps.items():
+        if rep["bytes_read_measured"] != spooled[pair]:
+            bad.append(f"{pair}: bytes_read_measured "
+                       f"{rep['bytes_read_measured']} != spooled "
+                       f"{spooled[pair]}")
+        if rep["index_bytes_encoded"] != file_bytes[pair]:
+            bad.append(f"{pair}: index_bytes_encoded "
+                       f"{rep['index_bytes_encoded']} != live segment files "
+                       f"{file_bytes[pair]}")
+    iso, shared = (reps[p]["gb_per_min_measured"] for p in ENVELOPE_PAIRS)
+    speedup = iso / shared if shared > 0 else float("inf")
+    if not speedup > 1.0:
+        bad.append(f"isolation speedup {speedup} is not above 1")
+    if bad:
+        raise AssertionError("[envelope] gates: " + "; ".join(bad))
+    return speedup
+
+
+def phase_envelope(args, dev, card, rec, made=(), k: int = 10) -> tuple:
+    """The paper's experiment on the card (``benchmarks/run.py``'s
+    ``envelope_measured`` at CONFIG width): per pair, spool
+    ENVELOPE_BATCHES batches into a throttled RAM source, index them with
+    ``index_spooled`` into a throttled ``FSDirectory`` target under
+    ``build/``, ``finalize()``, report; recover the commit on the card
+    and serve 32 queries, pruned against exhaustive. ``made``: batches of
+    this corpus made already (the durable path's), spooled as they are.
+    Returns (report, launches of the counted runs, summed)."""
+    import dataclasses
+    import shutil
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.configs.lucene_envelope import CONFIG
+    from repro_torch.core import envelope as env
+    from repro_torch.core.indexer import Indexer
+    from repro_torch.core.searcher import IndexSearcher, ReaderCache
+    from repro_torch.data.corpus import (CW09B_SMALL, SyntheticCorpus,
+                                         spool_corpus)
+    from repro_torch.kernels import _build
+    from repro_torch.storage import (MEDIA_PROFILES, DeviceThrottle,
+                                     FSDirectory, RAMDirectory,
+                                     ThrottledDirectory, open_latest)
+    n_docs = ENVELOPE_BATCHES * args.batch_docs
+    corpus = SyntheticCorpus(dataclasses.replace(CW09B_SMALL, n_docs=n_docs),
+                             doc_buffer_len=CONFIG.doc_len)
+    if len(made) >= ENVELOPE_BATCHES:
+        corpus = types.SimpleNamespace(batch=lambda i, n: made[i])
+    rng = np.random.default_rng(0)
+    vocab = np.unique(corpus.batch(0, 32))[1:]
+    q = np.stack([rng.choice(vocab, 4, replace=False)
+                  for _ in range(32)]).astype(np.int32)
+    root = ROOT / "build" / f"chip_smoke_envelope_{os.getpid()}"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"docs": n_docs, "pairs": {}}
+    reps, spooled, files = {}, {}, {}
+    launches = {n: 0 for n in _build.LAUNCHES}
+    try:
+        for sp, tp in ENVELOPE_PAIRS:
+            # one device (one throttle) when the profiles match
+            th_t = DeviceThrottle(MEDIA_PROFILES[tp])
+            th_s = th_t if sp == tp else DeviceThrottle(MEDIA_PROFILES[sp])
+            src = ThrottledDirectory(RAMDirectory(), th_s)
+            path = root / f"{sp}__{tp}"
+            t0 = time.perf_counter()
+            spooled[(sp, tp)] = spool_corpus(corpus, src, ENVELOPE_BATCHES,
+                                             args.batch_docs)
+            spool_s = time.perf_counter() - t0
+            src.reset_counters()
+            th_s.reset()   # spooling predates the run
+            with rec:
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                ix = Indexer(cfg=CONFIG, device=dev,
+                             source=env.PROFILE_TO_MEDIA[sp],
+                             target=env.PROFILE_TO_MEDIA[tp],
+                             source_dir=src, target_dir=ThrottledDirectory(
+                                 FSDirectory(str(path)), th_t))
+                indexed = ix.index_spooled()
+                ix.finalize()
+                _sync(dev)
+                wall = time.perf_counter() - t0
+                rep = ix.envelope_report()
+                ix.close()
+                t0 = time.perf_counter()
+                gen, segs = open_latest(FSDirectory(str(path)), device=dev)
+                pruned = ReaderCache(device=dev).refresh(segs)
+                v_p, i_p = pruned.search_batched(q, k)
+                _sync(dev)
+                recover_s = time.perf_counter() - t0
+                counted = dict(_build.LAUNCHES)
+            for n, c in counted.items():
+                launches[n] += c
+            dense = IndexSearcher(readers=pruned.readers, prune=False,
+                                  device=dev)
+            v_d, i_d = dense.search_batched(q, k)
+            if not torch.equal(v_p.view(torch.int32), v_d.view(torch.int32)):
+                raise AssertionError(f"[envelope] {sp}->{tp}: pruned != "
+                                     f"exhaustive on the recovered commit")
+            check_ids_by_true_score(dense, q, v_p, i_p, i_d)
+            if not (pruned.n_docs == indexed == n_docs) \
+                    or not bool(torch.isfinite(v_p).all()):
+                raise AssertionError(f"[envelope] {sp}->{tp}: recovered "
+                                     f"{pruned.n_docs} docs of {indexed} "
+                                     f"indexed, {n_docs} spooled")
+            _require(counted, ("pack", "unpack"), f"[envelope] {sp}->{tp}")
+            if not (counted["bm25_blocks"] + counted["bm25_blocks_midgrid"]):
+                raise AssertionError(f"[envelope] {sp}->{tp}: serving "
+                                     f"launched no BM25 kernel: {counted}")
+            files[(sp, tp)] = _live_file_bytes(path)
+            reps[(sp, tp)] = rep
+            out["pairs"][f"{sp}->{tp}"] = dict(
+                rep, wall_s=wall, spool_s=spool_s, recover_s=recover_s,
+                spooled_bytes=spooled[(sp, tp)],
+                live_file_bytes=files[(sp, tp)], launches=counted,
+                commit_gen=gen)
+            del ix, pruned, dense, segs
+            shutil.rmtree(path, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    speedup = envelope_gates(reps, spooled, files)
+    out["isolation_speedup"] = speedup
+    for (sp, tp), rep in reps.items():
+        o = out["pairs"][f"{sp}->{tp}"]
+        print(f"[envelope] on {card}: {sp}->{tp} (modeled as "
+              f"{env.PROFILE_TO_MEDIA[sp]}->{env.PROFILE_TO_MEDIA[tp]}), "
+              f"{n_docs} docs, {rep['bytes_read_measured']} source bytes: "
+              f"measured {rep['gb_per_min_measured']:.4f} GB/min of "
+              f"throttle device time (t_io {rep['t_io_measured_s']:.4f}s, "
+              f"shared {rep['shared_media_measured']}); modeled "
+              f"{rep['gb_per_min_modeled']:.4f} GB/min in the paper's media "
+              f"units, bound {rep['bound']}; alpha_measured "
+              f"{rep['alpha_measured']:.4f} ({rep['n_merges']} merges); "
+              f"index {rep['index_bytes_encoded']} encoded bytes; wall "
+              f"{o['wall_s']:.2f}s to durable (spool {o['spool_s']:.2f}s "
+              f"apart), recovery + 32 queries {o['recover_s']:.2f}s; "
+              f"launches {o['launches']}", flush=True)
+    mruns = [env.measured_run_from_report(s, t, r, "t_io_measured_s")
+             for (s, t), r in reps.items()]
+    media, p, _ = env.calibrate(measured=mruns, measured_weight=0.1)
+    out["calibrated"] = {"params": dataclasses.asdict(p), "media": {
+        n: dataclasses.asdict(m) for n, m in media.items()}}
+    print(f"[envelope] isolation speedup (nas->ssd over ssd->ssd measured "
+          f"GB/min) {speedup:.4f}; calibrate() refitted with the {len(mruns)}"
+          f" measured runs (weight 0.1): alpha {p.alpha:.4f}, c_idx "
+          f"{p.c_idx:.2f}, interference {p.interference:.4f}, zfs write "
+          f"{media['zfs'].write_bw:.4f} GB/s, xfs write "
+          f"{media['xfs'].write_bw:.4f} GB/s (model units)", flush=True)
+    return out, launches
+
+
+def steady_rate(slice_qps: float) -> float:
+    """[steady]'s open-loop arrival rate: half the closed-loop QPS that
+    this run's [slice] measured."""
+    import math
+    if not (isinstance(slice_qps, (int, float)) and math.isfinite(slice_qps)
+            and slice_qps > 0):
+        raise AssertionError(f"[slice] measured no QPS to pace [steady] "
+                             f"with: {slice_qps}")
+    return slice_qps / 2
+
+
+def miss_latency_ms(requests) -> dict:
+    """p50/p99/p999 ms (intended arrival -> result) of the completed
+    requests the result cache did not answer: the arrivals the scorers
+    served. Zeros when there were none."""
+    import numpy as np
+    lat = np.array([(r.t_done - r.t_submit) * 1e3 for r in requests
+                    if r.done and not r.cached], np.float64)
+    out = {"misses": int(lat.size)}
+    for name, q in (("p50_ms", 50), ("p99_ms", 99), ("p999_ms", 99.9)):
+        out[name] = float(np.percentile(lat, q)) if lat.size else 0.0
+    return out
+
+
+def steady_gates(load: dict, daemon_refreshes: int, generations: int,
+                 report: dict, launches: dict) -> None:
+    """The [steady] gates: every arrival completed, none shed; the daemon
+    refreshed and the scheduler served from enough generations; two merge
+    threads ran at least one merge; pack, bm25_blocks and midgrid
+    launched."""
+    bad = []
+    if load["completed"] != load["offered"] or load["rejected"]:
+        bad.append(f"completed {load['completed']} of {load['offered']} "
+                   f"offered, {load['rejected']} rejected")
+    if daemon_refreshes < STEADY_MIN_REFRESHES:
+        bad.append(f"{daemon_refreshes} daemon refreshes")
+    if generations < STEADY_MIN_REFRESHES:
+        bad.append(f"served from {generations} generations")
+    if report["merge_concurrency"] != 2 or report["n_merges"] < 1:
+        bad.append(f"merge_concurrency {report['merge_concurrency']}, "
+                   f"n_merges {report['n_merges']}")
+    for name in ("pack", "bm25_blocks", "bm25_blocks_midgrid"):
+        if launches.get(name, 0) <= 0:
+            bad.append(f"{name} never launched")
+    if bad:
+        raise AssertionError("[steady] gates: " + "; ".join(bad))
+
+
+def check_no_deleted(ids, deleted) -> int:
+    """No acknowledged-deleted doc among served ids; returns the ids
+    checked."""
+    import numpy as np
+    ids = np.asarray(ids).reshape(-1)
+    hit = sorted(set(ids[ids >= 0].tolist()) & set(map(int, deleted)))
+    if hit:
+        raise AssertionError(f"deleted docs served: {hit[:8]}")
+    return int(ids.size)
+
+
+def check_cache_entries(entries: dict, searcher, k: int) -> int:
+    """Each result-cache entry ((query bytes, k), generation) -> (scores,
+    ids) against an uncached search of ``searcher`` (the snapshot of that
+    generation), 64 queries a batch: the scores bit for bit, and every
+    cached id with its true score (``check_ids_by_true_score``: among
+    equal scores the ids may differ, since the order segments are visited
+    in, which breaks ties, follows the whole batch's bounds). Returns the
+    number of entries checked."""
+    import numpy as np
+    import torch
+    from repro_torch.core.searcher import IndexSearcher
+    keys = list(entries)
+    dense = IndexSearcher(readers=searcher.readers, prune=False,
+                          device=searcher.device)
+    for s0 in range(0, len(keys), 64):
+        chunk = keys[s0:s0 + 64]
+        q = np.stack([np.frombuffer(key[0][0], np.int32) for key in chunk])
+        v_c = torch.from_numpy(np.stack([entries[key][0] for key in chunk]))
+        i_c = torch.from_numpy(np.stack([entries[key][1] for key in chunk]))
+        v, i = searcher.search_batched(q, k)
+        if not torch.equal(v_c.view(torch.int32), v.view(torch.int32)):
+            row = int((v_c.view(torch.int32) != v.view(torch.int32)).any(
+                1).nonzero()[0])
+            raise AssertionError(f"a result-cache entry of generation "
+                                 f"{chunk[row][1]} differs from an uncached "
+                                 f"search: {q[row].tolist()}")
+        check_ids_by_true_score(dense, q, v_c, i_c, i)
+    return len(keys)
+
+
+def wait_for_new_generation(ix, gen0: int, timeout_s: float) -> float:
+    """Wait until the snapshot ``ix`` serves is of another generation than
+    ``gen0`` (the refresh daemon swaps it in); returns the seconds waited.
+    Raises when that takes longer than ``timeout_s``."""
+    t0 = time.perf_counter()
+    while ix.searcher.generation == gen0:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"[steady] no refresh surfaced a change "
+                                 f"to generation {gen0} in {timeout_s}s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def _steady_churn(ix, batches, q_del, k: int):
+    """The [steady] churn hook: each call is one tick that indexes the
+    next batch; every STEADY_DELETE_EVERY-th tick deletes STEADY_DELETES
+    docs the served snapshot returns for the pool's queries. It does not
+    refresh: the daemon does. A tick that changed what is served (a flush
+    or a delete) ends when the daemon has swapped in a new generation, so
+    that each change surfaces in a generation of its own rather than in
+    one with the next tick's. ``state.done`` is set when the last tick is
+    in; ``state.lock`` is held for the length of a tick; ``state.error``
+    keeps the first error a tick raised (a tick may still run on the churn
+    thread after ``run_open_loop`` has returned)."""
+    import threading
+    import types
+    import numpy as np
+    state = types.SimpleNamespace(tick=0, deleted=[], t_first=None,
+                                  t_last=None, waited_s=0.0, error=None,
+                                  done=threading.Event(),
+                                  lock=threading.Lock())
+
+    def live():
+        return {s.seg_id for s in ix.merger.live_segments()}
+
+    def churn():
+        try:
+            tick()
+        except Exception as e:
+            state.error = state.error or e
+            raise
+
+    def tick():
+        with state.lock:
+            if state.tick >= len(batches):
+                return
+            if state.t_first is None:
+                state.t_first = time.perf_counter()
+            gen0, segs0 = ix.searcher.generation, live()
+            ix.index_batch(batches[state.tick])
+            state.tick += 1
+            changed = live() != segs0
+            if state.tick % STEADY_DELETE_EVERY == 0:
+                _, ids = ix.searcher.search_batched(q_del, k)
+                gone = set(state.deleted)
+                pick = [d for d in dict.fromkeys(ids.reshape(-1).tolist())
+                        if d >= 0 and d not in gone][:STEADY_DELETES]
+                ix.delete(np.asarray(pick, np.int64))
+                state.deleted += pick
+                changed = changed or bool(pick)
+            if changed:
+                state.waited_s += wait_for_new_generation(
+                    ix, gen0, STEADY_SURFACE_S)
+            state.t_last = time.perf_counter()
+            if state.tick == len(batches):
+                state.done.set()
+    return churn, state
+
+
+def phase_steady(args, dev, card, rec, slice_qps: float, made=(),
+                 k: int = 10) -> tuple:
+    """Serving while indexing, open loop: an ``Indexer`` with the refresh
+    daemon (1 s) and two merge threads, a ``QueryScheduler`` (32 slots, 4
+    terms, k=10, 2 ms, a ``ResultCache``) attached to it; seeded with
+    STEADY_SEED_BATCHES batches, refreshed and warmed; then Poisson
+    arrivals at half [slice]'s QPS while the churn hook ingests
+    STEADY_TICKS more batches and deletes served docs. Ticks left when
+    serving ends run after it. ``made``: batches of this corpus made
+    already (the durable path's). Returns (report, launches)."""
+    import dataclasses
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.configs.lucene_envelope import CONFIG
+    from repro_torch.core.indexer import Indexer
+    from repro_torch.core.searcher import IndexSearcher
+    from repro_torch.data.corpus import CW09B_SMALL, SyntheticCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.serving.steady import (QueryScheduler, ResultCache,
+                                            run_open_loop, warm_searcher)
+
+    class _Cache(ResultCache):
+        """A ResultCache that also notes every generation a step filled
+        it from: the generations the scheduler served from."""
+
+        def __init__(self):
+            super().__init__()
+            self.generations = set()
+            self.last_generation = 0
+
+        def put(self, key, value):
+            self.generations.add(key[1])
+            self.last_generation = key[1]
+            super().put(key, value)
+
+    n_batches = STEADY_SEED_BATCHES + STEADY_TICKS
+    corpus = SyntheticCorpus(dataclasses.replace(
+        CW09B_SMALL, n_docs=n_batches * args.batch_docs),
+        doc_buffer_len=CONFIG.doc_len)
+    t0 = time.perf_counter()
+    batches = (list(made[:n_batches]) if len(made) >= n_batches else
+               serve.generate_batches(corpus, n_batches, args.batch_docs))
+    rep = {"generate_s": time.perf_counter() - t0,
+           "docs": n_batches * args.batch_docs}
+    rng = np.random.default_rng(0)
+    vocab = np.unique(batches[0][:32])[1:]
+    pool = [rng.choice(vocab, 4, replace=False).astype(np.int32)
+            for _ in range(STEADY_POOL)]
+    q_pool = np.stack(pool)
+    rep["qps_target"] = qps = steady_rate(slice_qps)
+    refreshes = []            # (thread name, seconds) of every refresh
+    snapshots = {}            # generation -> searcher, the last few
+    swapped = set()           # every generation a refresh swapped in
+
+    def on_refresh(s):
+        refreshes.append((threading.current_thread().name,
+                          ix.stats.last_refresh_s))
+        swapped.add(s.generation)
+        snapshots[s.generation] = s
+        while len(snapshots) > 4:
+            snapshots.pop(next(iter(snapshots)))
+    with rec:
+        _build.reset_launches()
+        ix = Indexer(cfg=CONFIG, device=dev, refresh_every=1.0,
+                     merge_threads=2)
+        try:
+            t0 = time.perf_counter()
+            for b in batches[:STEADY_SEED_BATCHES]:
+                ix.index_batch(b)
+            searcher = ix.refresh()
+            rep["seed_s"] = time.perf_counter() - t0
+            cache = _Cache()
+            sched = QueryScheduler(searcher=searcher, slots=32, max_terms=4,
+                                   k=k, max_wait_ms=2.0, cache=cache,
+                                   device=dev)
+            ix.attach_serving(sched)
+            snapshots[searcher.generation] = searcher
+            ix.on_refresh.append(on_refresh)
+            t0 = time.perf_counter()
+            warm_searcher(searcher, pool, 32, 4, k)
+            rep["warm_s"] = time.perf_counter() - t0
+            churn, state = _steady_churn(
+                ix, batches[STEADY_SEED_BATCHES:], q_pool[:32], k)
+            rep["duration_s"] = STEADY_SECONDS
+            load = run_open_loop(sched, pool, qps, STEADY_SECONDS, seed=0,
+                                 churn=churn,
+                                 churn_interval_s=STEADY_TICK_GAP)
+            with state.lock:          # the tick in flight, if any
+                rep["ticks_under_serving"] = state.tick
+            # the last generation served, and its snapshot
+            gen = cache.last_generation
+            served_searcher = snapshots.get(gen)
+            while state.tick < STEADY_TICKS:
+                churn()
+            if not state.done.wait(timeout=60):
+                raise AssertionError("[steady] the churn never finished")
+            if state.error is not None:
+                raise state.error
+            ix.merge_scheduler.drain()
+            report = ix.envelope_report()
+        finally:
+            ix.close()
+        launches = dict(_build.LAUNCHES)
+    daemon = [s for name, s in refreshes if name == "nrt-refresh"]
+    rep.update(load.row(), daemon_refreshes=len(daemon),
+               refresh_mean_s=float(np.mean(daemon)) if daemon else 0.0,
+               refresh_max_s=float(np.max(daemon)) if daemon else 0.0,
+               generations_served=len(cache.generations),
+               generations_swapped=len(swapped),
+               n_merges=report["n_merges"],
+               merge_wall_s=report["merge_wall_s"],
+               merge_concurrency=report["merge_concurrency"],
+               cache=cache.report(), deleted=len(state.deleted),
+               surface_wait_s=state.waited_s,
+               launches=launches, serve_steps=report["serve_steps"],
+               serve_cached=report["serve_cached"])
+    ticked = state.t_last - state.t_first if state.t_last else 0.0
+    rep["ticks_s"] = ticked
+    rep["docs_per_s_ingest_under_serving"] = (
+        rep["ticks_under_serving"] * args.batch_docs / ticked
+        if ticked > 0 else 0.0)
+    hit_rate = load.cached / max(load.completed, 1)
+    rep["miss_latency"] = miss = miss_latency_ms(load.requests)
+    print(f"[steady] on {card}: open loop at {qps:.2f} QPS offered (half "
+          f"[slice]'s {slice_qps:.2f}) for {rep['duration_s']:.1f}s: "
+          f"{load.completed} of {load.offered} completed, {load.rejected} "
+          f"rejected, achieved {load.qps_achieved:.2f} QPS in "
+          f"{load.wall_s:.2f}s; latency p50 {load.p50_ms:.2f} ms p99 "
+          f"{load.p99_ms:.2f} ms p999 {load.p999_ms:.2f} ms; queue depth "
+          f"mean {load.mean_queue_depth:.2f} max {load.max_queue_depth}; "
+          f"cache hit rate {hit_rate:.4f} ({load.cached} hits); the "
+          f"{miss['misses']} misses alone: p50 {miss['p50_ms']:.2f} ms p99 "
+          f"{miss['p99_ms']:.2f} ms p999 {miss['p999_ms']:.2f} ms",
+          flush=True)
+    print(f"[steady] on {card}: {rep['docs']} docs ({STEADY_SEED_BATCHES} "
+          f"seed batches + {STEADY_TICKS} ticks, {rep['ticks_under_serving']}"
+          f" under serving over {ticked:.1f}s, {rep['deleted']} deletes, "
+          f"{rep['surface_wait_s']:.1f}s of it waiting for changes to "
+          f"surface); ingest to searchable under serving "
+          f"{rep['docs_per_s_ingest_under_serving']:.0f} docs/s; "
+          f"{rep['daemon_refreshes']} daemon refreshes (each a device-wide "
+          f"synchronize), mean {rep['refresh_mean_s']:.3f}s max "
+          f"{rep['refresh_max_s']:.3f}s; served from "
+          f"{rep['generations_served']} generations of "
+          f"{rep['generations_swapped']} swapped in; {rep['n_merges']} "
+          f"merges on {rep['merge_concurrency']} threads, "
+          f"{rep['merge_wall_s']:.2f}s merge wall; seed "
+          f"{rep['seed_s']:.2f}s, warm {rep['warm_s']:.2f}s; launches "
+          f"{launches}", flush=True)
+    steady_gates(rep, rep["daemon_refreshes"], rep["generations_served"],
+                 report, launches)
+    # after close(): one more refresh; the final snapshot is exact
+    final = ix.refresh()
+    dense = IndexSearcher(readers=final.readers, prune=False, device=dev)
+    q = q_pool[:32]
+    v_all, i_all = final.search_batched(q_pool, k)
+    v_p, i_p = v_all[:32], i_all[:32]
+    v_d, i_d = dense.search_batched(q, k)
+    if not torch.equal(v_p.view(torch.int32), v_d.view(torch.int32)):
+        raise AssertionError("[steady] pruned != exhaustive on the final "
+                             "snapshot")
+    check_ids_by_true_score(dense, q, v_p, i_p, i_d)
+    check_no_deleted(i_all, state.deleted)
+    if final.n_docs != rep["docs"] - len(state.deleted):
+        raise AssertionError(f"[steady] the final snapshot holds "
+                             f"{final.n_docs} docs, not {rep['docs']} - "
+                             f"{len(state.deleted)} deleted")
+    if served_searcher is None:
+        raise AssertionError(f"[steady] the snapshot of generation {gen}, "
+                             f"the last served, is not at hand")
+    with cache._lock:
+        entries = {key: v for key, v in cache._store.items()
+                   if key[1] == gen}
+    rep["cache_entries_checked"] = check_cache_entries(entries,
+                                                       served_searcher, k)
+    print(f"[steady] checks after close() and one more refresh: final "
+          f"snapshot {final.n_docs} docs, pruned == exhaustive with true "
+          f"scores on 32 queries, no deleted doc among the pool's top-{k}, "
+          f"{rep['cache_entries_checked']} cache entries of generation "
+          f"{gen} == uncached searches (scores bit for bit, ids by true "
+          f"score)", flush=True)
+    del ix, sched, searcher, served_searcher, final, dense, cache, batches
+    snapshots.clear()
     return rep, launches
+
+
+def phase_examples(card) -> dict:
+    """``examples/torch_*.py`` on the card, as subprocesses started
+    together: each must exit 0."""
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name)], cwd=str(ROOT),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name in EXAMPLES}
+    out = {}
+    for name, proc in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        out[name] = {"rc": proc.returncode, "tail": log.splitlines()[-3:]}
+    secs = time.perf_counter() - t0
+    bad = {n: o for n, o in out.items() if o["rc"] != 0}
+    if bad:
+        raise AssertionError(f"[examples] failed: {bad}")
+    for name, o in out.items():
+        print(f"[examples] on {card}: {name} exit 0: {o['tail'][-1]}",
+              flush=True)
+    print(f"[examples] ({secs:.1f}s)", flush=True)
+    return {"examples": out, "examples_s": secs}
 
 
 def _plane_bytes(bw_docs, bw_tf, keep) -> int:
@@ -1738,13 +2365,32 @@ def main(argv=None) -> int:
     del_ids, upd_ids = served[:8], served[8:12]
     del phases
     t0 = time.perf_counter()
-    durable, d_launches = phase_durable(args, dev, card, rec, del_ids,
-                                        upd_ids)
+    durable, d_launches, made = phase_durable(args, dev, card, rec,
+                                              del_ids, upd_ids)
     durable["durable_s"] = time.perf_counter() - t0
     print(f"[durable] ({durable['durable_s']:.1f}s)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    envelope, e_launches = phase_envelope(args, dev, card, rec, made)
+    envelope["envelope_s"] = time.perf_counter() - t0
+    print(f"[envelope] ({envelope['envelope_s']:.1f}s)", flush=True)
+    gc.collect()
+    t0 = time.perf_counter()
+    steady, s_launches = phase_steady(args, dev, card, rec, report["qps"],
+                                      made)
+    del made
+    steady["steady_s"] = time.perf_counter() - t0
+    print(f"[steady] ({steady['steady_s']:.1f}s)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = phase_examples(card)
+
     f32_launches = lm["checks"]["f32_launches"]
     launches = {n: launches[n] + d_launches[n] + lm_launches[n]
-                + f32_launches[n] for n in launches}
+                + f32_launches[n] + e_launches[n] + s_launches[n]
+                for n in launches}
 
     t0 = time.perf_counter()
     line, per_shape = phase_timing(rec, launches, err, card)
@@ -1759,7 +2405,8 @@ def main(argv=None) -> int:
         "tc_build": tc_build, "retrieval_build": retrieval_build,
         "simt_build": simt_build,
         "report": report, "checks": checks, "profile": prof,
-        "durable": durable, "lm": lm,
+        "durable": durable, "lm": lm, "envelope": envelope,
+        "steady": steady, "examples": examples,
         "kernels": line, "kernel_shapes": per_shape,
         "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(json.dumps({"kernels": line}))

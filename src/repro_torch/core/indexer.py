@@ -23,11 +23,23 @@ and replays the log on recovery. A ``ChecksumScrubber`` re-verifies
 committed frames (``scrub_every`` > 0 runs it as a daemon thread, stopped
 by ``close()``).
 
-Merges run synchronously inside the flush. Not ported yet (each raises
-``NotImplementedError`` naming ``ROADMAP.md``): background merges
-(``merge_threads``, ``merge_io_mbps``), the NRT refresh daemon, the
-replication publisher, the multi-device mesh step and
-``envelope_report``.
+Merges run synchronously inside the flush unless ``merge_threads`` > 0:
+then a ``ConcurrentMergeScheduler`` runs them on that many worker threads
+(failed merges retried ``merge_retries`` times), paced by a
+``MergeRateLimiter`` at ``merge_io_mbps``. With ``refresh_every`` > 0 a
+daemon thread refreshes ``self.searcher`` at that period (flush=False) and
+calls the ``on_refresh`` hooks; ``attach_serving`` registers a
+``QueryScheduler``'s ``swap_searcher`` there. ``close()`` stops the daemon,
+the scrubber and the merge pool.
+
+``envelope_report()`` charges the measured bytes to the ``source`` ->
+``target`` media pair of ``core/envelope.py`` (modeled seconds in the
+paper's media units) and, with ``target_dir``, adds what the source and
+target ``Directory`` stacks measured (bytes, and throttle device time).
+
+Not ported yet (each raises ``NotImplementedError`` naming
+``ROADMAP.md``): the replication publisher and the multi-device mesh
+step.
 """
 from __future__ import annotations
 
@@ -38,21 +50,27 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
+from repro_torch.core import envelope as env
 from repro_torch.core.flush import FlushPolicy
 from repro_torch.core.invert import invert_shard
-from repro_torch.core.merge import (MergeDriver, MergeRateLimiter,
-                                    reassign_doc_ids)
-from repro_torch.core.searcher import IndexSearcher, ReaderCache
+from repro_torch.core.merge import (ConcurrentMergeScheduler, MergeDriver,
+                                    MergeRateLimiter, reassign_doc_ids)
+from repro_torch.core.query import PruneStats
+from repro_torch.core.searcher import (IndexSearcher, ReaderCache,
+                                       evaluator_cache_hits)
 from repro_torch.core.segments import Segment, segment_from_run
 from repro_torch.data.corpus import iter_spooled
 from repro_torch.device import resolve_device
 from repro_torch.storage.commit import RecoveryInfo, SegmentStore
 from repro_torch.storage.directory import CachingDirectory
-from repro_torch.storage.retry import RetryingDirectory
+from repro_torch.storage.retry import RetryingDirectory, RetryPolicy
 from repro_torch.storage.scrub import (ChecksumScrubber,
                                        throttle_saturation_gate)
 from repro_torch.storage.wal import (WriteAheadLog, encode_wal_add,
                                      encode_wal_delete)
+
+# the model parameters envelope_report charges the media pair with
+_ENVELOPE_PARAMS = env.EnvelopeParams()
 
 
 def _later_slice(what: str):
@@ -75,8 +93,9 @@ class IndexStats:
 
 @dataclass
 class Indexer:
-    """Host driver: device inversion + flush/merge + NRT refresh, and the
-    durable write path when ``target_dir`` is set.
+    """Host driver: device inversion + flush/merge + NRT refresh with
+    envelope accounting, and the durable write path when ``target_dir``
+    is set.
 
     ``device`` None runs on CUDA (and raises without a CUDA device);
     ``"cpu"`` runs the plain PyTorch path on the host. Segment encodes,
@@ -84,6 +103,9 @@ class Indexer:
 
     cfg: object
     device: object = None
+    # the media pair envelope_report charges (core/envelope.py MEDIA keys)
+    source: str = "ceph"
+    target: str = "ssd"
     mesh: object = None
     stats: IndexStats = field(default_factory=IndexStats)
     merger: MergeDriver = None
@@ -117,9 +139,25 @@ class Indexer:
     # segments (degraded) instead of falling back
     degraded_ok: bool = False
     scrubber: ChecksumScrubber = None
-    # later slices of the port
+    # > 0: merges run on a ConcurrentMergeScheduler with that many worker
+    # threads, so index_batch never waits on a cascade; 0: synchronous
+    # merges inside the flush. None: take cfg.merge_threads.
     merge_threads: int = None
+    merge_scheduler: ConcurrentMergeScheduler = None
+    # > 0: background-merge IO is paced at this MB/s. None: take
+    # cfg.merge_io_mbps; 0 disables.
+    merge_io_mbps: float = None
+    # > 0: a faulted background merge is retried with backoff this many
+    # times before MergeRetriesExhausted. None: take cfg.merge_retries.
+    merge_retries: int = None
+    # > 0: a daemon thread refreshes ``self.searcher`` at this period (s).
+    # None: take cfg.refresh_every; 0 disables. Stopped by ``close()``.
     refresh_every: float = None
+    # callables given the fresh searcher after every ``refresh``
+    # (``attach_serving`` registers a scheduler's ``swap_searcher``)
+    on_refresh: list = None
+    serving: object = None     # attached QueryScheduler (report source)
+    # later slices of the port
     publisher: object = None
     _postings_cache: object = None   # CachingDirectory when configured
     _next_doc: int = 0
@@ -131,20 +169,17 @@ class Indexer:
         self.device = resolve_device(self.device)
         if self.mesh is not None:
             raise _later_slice("the multi-device mesh indexing step")
-        if (self.refresh_every or getattr(self.cfg, "refresh_every", 0.0)):
-            raise _later_slice("the NRT refresh daemon (refresh_every)")
-        if (self.merge_threads or getattr(self.cfg, "merge_threads", 0)
-                or getattr(self.cfg, "merge_io_mbps", 0.0)):
-            raise _later_slice("background merges (merge_threads, "
-                               "merge_io_mbps)")
         if self.publisher is not None:
             raise _later_slice("the replication publisher")
         self.merger = MergeDriver(
             fanout=self.cfg.merge_fanout,
             reorder_on_merge=getattr(self.cfg, "reorder_on_merge", False))
+        if self.on_refresh is None:
+            self.on_refresh = []
         if self.target_dir is not None:
             self._open_target()
         self._next_doc = max(self._next_doc, self.doc_base)
+        self._start_merges()
         self.reader_cache = ReaderCache(device=self.device)
         self._flush_policy = FlushPolicy(budget_mb=self.cfg.flush_budget_mb)
         # serializes the flush buffer handoff + doc-id allocation
@@ -169,6 +204,35 @@ class Indexer:
             self.scrub_io_mbps = getattr(self.cfg, "scrub_io_mbps", 0.0)
         if self.target_dir is not None:
             self._start_scrubber()
+        if self.refresh_every is None:
+            self.refresh_every = getattr(self.cfg, "refresh_every", 0.0)
+        self._stop_refresh = threading.Event()
+        self._refresh_error = None
+        self._refresh_thread = None
+        if self.refresh_every and self.refresh_every > 0:
+            self._refresh_thread = threading.Thread(
+                target=self._refresh_daemon, name="nrt-refresh", daemon=True)
+            self._refresh_thread.start()
+
+    def _start_merges(self):
+        """Background merges (``merge_threads`` > 0, with the retry policy
+        when ``merge_retries`` > 0) and the merge IO limiter."""
+        if self.merge_threads is None:
+            self.merge_threads = getattr(self.cfg, "merge_threads", 0)
+        if self.merge_retries is None:
+            self.merge_retries = getattr(self.cfg, "merge_retries", 0)
+        if self.merge_threads:
+            policy = None
+            if self.merge_retries:
+                policy = RetryPolicy(max_retries=self.merge_retries,
+                                     base_delay_s=0.01, max_delay_s=0.25)
+            self.merge_scheduler = ConcurrentMergeScheduler(
+                self.merger, max_threads=self.merge_threads,
+                retry_policy=policy)
+        if self.merge_io_mbps is None:
+            self.merge_io_mbps = getattr(self.cfg, "merge_io_mbps", 0.0)
+        if self.merge_io_mbps:
+            self.merger.io_limiter = MergeRateLimiter(self.merge_io_mbps)
 
     def _open_target(self):
         """Stack the target directory (retries, then the postings cache
@@ -390,12 +454,11 @@ class Indexer:
             self._wal.truncate_upto(covered)
         return gen
 
-    def envelope_report(self) -> dict:
-        raise _later_slice("envelope_report (core/envelope.py)")
-
     def finalize(self) -> Segment:
         """Force-merge to the paper's single-segment end state, committed
-        durably when a target ``Directory`` is attached."""
+        durably when a target ``Directory`` is attached. With background
+        merges this first drains the cascades in flight (inside
+        ``MergeDriver.finalize``); the scheduler stays usable."""
         self._flush()
         with self._flush_lock:
             covered = self._wal_covered
@@ -407,16 +470,55 @@ class Indexer:
         return final
 
     def close(self):
-        """Stop the scrubber daemon (join; re-raises what it died of).
-        Merges are synchronous, so no pool needs releasing."""
-        if self.scrubber is not None:
-            scrubber, self.scrubber = self.scrubber, None
-            scrubber.close()
+        """Stop the NRT refresh daemon (join), the scrubber daemon and the
+        background merge pool (no-op when merges are synchronous). An error
+        the refresh or scrub thread died of is re-raised here, after all
+        three are stopped."""
+        err = None
+        try:
+            if self._refresh_thread is not None:
+                self._stop_refresh.set()
+                self._refresh_thread.join(timeout=30)
+                if self._refresh_thread.is_alive():
+                    raise RuntimeError("refresh daemon failed to stop")
+                self._refresh_thread = None
+                err, self._refresh_error = self._refresh_error, None
+        finally:
+            try:
+                if self.scrubber is not None:
+                    scrubber, self.scrubber = self.scrubber, None
+                    scrubber.close()   # re-raises a scrub-thread error
+            finally:
+                if self.merge_scheduler is not None:
+                    sched, self.merge_scheduler = self.merge_scheduler, None
+                    sched.close()
+        if err is not None:
+            raise err
+
+    def _refresh_daemon(self):
+        """The daemon thread: an error ends it and ``close()`` re-raises
+        it (nothing falls back; the serving side keeps the last
+        snapshot until then)."""
+        try:
+            self._refresh_loop()
+        except Exception as e:
+            self._refresh_error = e
+
+    def _refresh_loop(self):
+        """Swap ``self.searcher`` to a fresh snapshot every
+        ``refresh_every`` seconds until ``close()`` (flush=False: the
+        ingest thread owns flushing; buffered deletes are folded in all
+        the same)."""
+        while not self._stop_refresh.wait(self.refresh_every):
+            self.refresh(flush=False)
 
     def refresh(self, flush: bool = True) -> IndexSearcher:
         """Near-real-time snapshot over ``MergeDriver.live_segments()``:
         flushes the buffer first (``flush=False`` snapshots only flushed
-        segments); buffered deletes are folded in either way."""
+        segments); buffered deletes are folded in either way. The reader
+        builds are synchronized on the device, so ``last_refresh_s`` is
+        the time to searchable; then the ``on_refresh`` hooks get the new
+        searcher."""
         with self._flush_lock:
             if flush:
                 self._flush_locked()
@@ -433,5 +535,181 @@ class Indexer:
             torch.cuda.synchronize(self.device)
         self.stats.refreshes += 1
         self.stats.last_refresh_s = time.time() - t0
-        self.searcher = searcher
+        self.searcher = searcher   # the (atomic) NRT swap
+        # a new generation keys result caches: the swap is the exact
+        # invalidation event
+        for cb in (self.on_refresh or ()):
+            cb(searcher)
         return searcher
+
+    def attach_serving(self, scheduler) -> None:
+        """Wire a ``QueryScheduler`` into this writer: every ``refresh``
+        swaps the fresh searcher in, and ``envelope_report`` grows the
+        ``serve_*`` counters (and ``result_cache`` with a cache)."""
+        self.serving = scheduler
+        self.on_refresh.append(scheduler.swap_searcher)
+        if self.searcher is not None \
+                and scheduler.searcher is not self.searcher:
+            scheduler.swap_searcher(self.searcher)
+
+
+    def envelope_report(self) -> dict:
+        """Charge the measured bytes to the ``source`` -> ``target`` media
+        pair (modeled seconds and GB/min in the paper's media units), next
+        to the merge, lifecycle, pruning, storage and serving counters;
+        with ``target_dir`` also what the Directory stacks measured
+        (``_measured_report``). The same keys as the JAX package's
+        ``DistributedIndexer.envelope_report``."""
+        src, tgt = env.MEDIA[self.source], env.MEDIA[self.target]
+        params = _ENVELOPE_PARAMS
+        G = self.stats.read_bytes
+        merge = self.merger.snapshot()  # atomic vs in-flight merge installs
+        W = merge["bytes_written"]
+        t_read = G / (src.read_bw * env.GB)
+        t_write = W / (tgt.write_bw * env.GB)
+        t_cpu = (G / env.GB) * params.c_idx / params.n_cores
+        if self.source == self.target:
+            t_io = (G + W) / (tgt.write_bw * env.GB) * params.interference
+            total = max(t_io, t_cpu)
+            bound = "shared-io" if t_io >= t_cpu else "cpu"
+        else:
+            total = max(t_read, t_cpu, t_write)
+            bound = ["read", "cpu", "write"][int(np.argmax(
+                [t_read, t_cpu, t_write]))]
+        # what the model charges the cascade (re-reads from the target +
+        # merge re-writes) next to the wall clock the merges took
+        merge_writes = W - merge["flushed_bytes"]
+        t_merge_modeled = (merge["bytes_read_merge"] / (tgt.read_bw * env.GB)
+                           + merge_writes / (tgt.write_bw * env.GB))
+        report = {
+            "alpha_measured": merge["amplification"],
+            "bytes_read": G, "bytes_written": W,
+            "t_read_s": t_read, "t_cpu_s": t_cpu, "t_write_s": t_write,
+            "modeled_total_s": total, "bound": bound,
+            "gb_per_min_modeled": (G / env.GB) / max(total / 60, 1e-9),
+            "docs_per_s_modeled": self.stats.docs / max(total, 1e-9),
+            "n_merges": merge["n_merges"],
+            "wall_s_host": self.stats.wall_s,
+            "t_merge_modeled_s": t_merge_modeled,
+            "merge_wall_s": merge["merge_wall_s"],
+            "merge_io_paused_s": merge["merge_io_paused_s"],
+            "live_docs": merge["live_docs"],
+            "deleted_docs": merge["deleted_docs"],
+            "deletes_acked": self.stats.deletes,
+            "updates_acked": self.stats.updates,
+            "merge_concurrency": (self.merge_scheduler.max_threads
+                                  if self.merge_scheduler else 0),
+            "index_bytes_raw": merge["live_bytes_raw"],
+            "index_bytes_encoded": 0,
+        }
+        # serving-side pruning counters of the latest refreshed searcher
+        ps = getattr(self.searcher, "prune_stats", None) or PruneStats()
+        report.update({
+            "blocks_candidate": ps.blocks_candidate,
+            "blocks_survived": ps.blocks_survived,
+            "blocks_scored": ps.blocks_scored,
+            "segments_skipped": ps.segments_skipped,
+            "prune_skip_rate": ps.skip_rate,
+            "terms_eliminated": ps.terms_eliminated,
+            "blocks_skipped_midgrid": ps.blocks_skipped_midgrid,
+            "evaluator_cache_hits": evaluator_cache_hits(),
+        })
+        if self.store is not None:
+            q = dict(self.store.quarantined)
+            report.update({
+                "degraded": bool(q),
+                "missing_docs": sum(int(v or 0) for v in q.values()),
+                "segments_quarantined": len(q),
+                "segments_healed": self.store.heals,
+            })
+        else:
+            report.update({
+                "degraded": bool(getattr(self.searcher, "degraded", False)),
+                "missing_docs": int(getattr(self.searcher, "missing_docs", 0)
+                                    or 0),
+                "segments_quarantined": len(getattr(self.searcher,
+                                                    "quarantined", ()) or ()),
+            })
+        if self._wal is not None:
+            w = self._wal
+            report.update({"wal_appends": w.appended,
+                           "wal_replayed": w.replayed,
+                           "wal_skipped": w.skipped,
+                           "wal_group_commits": w.group_commits,
+                           "wal_group_acks": w.group_acks,
+                           "wal_group_max": w.group_max,
+                           "wal_rotations": w.rotations,
+                           "wal_recycled": w.recycled,
+                           "wal_recycle_reused": w.recycle_reused,
+                           "wal_recycle_reclaimed": w.recycle_reclaimed})
+        if self.scrubber is not None:
+            report.update({f"scrub_{k}": v
+                           for k, v in self.scrubber.report().items()
+                           if k != "corrupt"})
+        d = self.target_dir   # the retry layer may sit under the cache
+        while d is not None:
+            if hasattr(d, "retries"):
+                report["io_retries"] = d.retries
+                report["io_giveups"] = d.giveups
+                break
+            d = getattr(d, "inner", None)
+        if self.merge_scheduler is not None:
+            report["merge_retries"] = self.merge_scheduler.merge_retries
+        if self._postings_cache is not None:
+            pc = self._postings_cache
+            report.update({
+                "postings_cache_hits": pc.cache_hits,
+                "postings_cache_misses": pc.cache_misses,
+                "postings_cache_evictions": pc.cache_evictions,
+                "postings_cache_rejected": pc.cache_rejected,
+                "postings_cache_bytes": pc.cache_bytes,
+            })
+        if self.serving is not None:
+            s = self.serving
+            report.update({
+                "serve_served": s.served,
+                "serve_cached": s.served_cached,
+                "serve_rejected": s.rejected,
+                "serve_steps": s.steps,
+                "serve_partial_steps": s.partial_steps,
+                "serve_queue_depth": s.queue_depth,
+                "serve_degraded": s.degraded,
+            })
+            if s.cache is not None:
+                report["result_cache"] = s.cache.report()
+        if self.store is not None:
+            report.update(self._measured_report())
+        return report
+
+    def _measured_report(self) -> dict:
+        """The measured counterpart of the model: bytes that crossed the
+        source and target Directories and the device time their throttles
+        accumulated (wall time when unthrottled). One throttle behind both
+        is one shared device: its timeline already sums both streams."""
+        live = self.merger.live_segments()
+        src_dir, tgt_dir = self.source_dir, self.target_dir
+        src_thr = getattr(src_dir, "throttle", None)
+        tgt_thr = getattr(tgt_dir, "throttle", None)
+        G_m = src_dir.bytes_read if src_dir is not None \
+            else self.stats.read_bytes
+        t_src = (src_thr.busy_read_s if src_thr is not None
+                 else src_dir.read_wall_s if src_dir is not None else 0.0)
+        t_tgt = (tgt_thr.busy_s if tgt_thr is not None
+                 else tgt_dir.write_wall_s + tgt_dir.read_wall_s)
+        shared = src_thr is not None and src_thr is tgt_thr
+        t_io = src_thr.busy_s if shared else max(t_src, t_tgt)
+        t_env = max(t_io, self.stats.wall_s)
+        return {
+            "bytes_read_measured": G_m,
+            "bytes_written_measured": tgt_dir.bytes_written,
+            "bytes_read_merge_measured": self.store.bytes_encoded_read,
+            "index_bytes_encoded": self.store.encoded_bytes_live(live),
+            "codec": self.store.codec,
+            "index_bytes_by_file": self.store.encoded_bytes_by_suffix(live),
+            "t_source_busy_s": t_src,
+            "t_target_busy_s": t_tgt,
+            "t_io_measured_s": t_io,
+            "shared_media_measured": shared,
+            "t_envelope_measured_s": t_env,
+            "gb_per_min_measured": (G_m / env.GB) / max(t_io / 60, 1e-12),
+        }

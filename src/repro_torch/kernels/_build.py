@@ -22,8 +22,10 @@ contract freely. A source's target hashes its own flags only, so a change
 to one source's flags rebuilds that source alone.
 
 ``LAUNCHES`` counts, per kernel op, the times a wrapper launched its
-kernel (the CPU path never touches it); ``chip_smoke.py`` zeroes it
-before driving the main path and reads it after.
+kernel (``count_launch``, under a lock: launches come from the ingest,
+merge, refresh and serving threads at once; the CPU path never counts);
+``chip_smoke.py`` zeroes it before driving the main path and reads it
+after.
 """
 from __future__ import annotations
 
@@ -78,12 +80,21 @@ LAUNCHES = {"pack": 0, "unpack": 0, "bm25_blocks": 0,
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 BUILD_LOG: dict = {}   # source -> (seconds, ptxas report) of this process
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """One more launch of kernel op ``name`` (its wrapper calls this once
+    its kernel is launched, and nowhere else)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def build_dir() -> Path:

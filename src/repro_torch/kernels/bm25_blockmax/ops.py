@@ -70,7 +70,7 @@ def bm25_blocks(packed_docs, bw_docs, first_doc, packed_tf, bw_tf, idf,
         None if part is None else part.data_ptr(), S,
         _build.stream_ptr(packed_docs))
     _build.check(rc, "bm25_blocks")
-    _build.LAUNCHES["bm25_blocks"] += 1
+    _build.count_launch("bm25_blocks")
     return (doc, tf, num, part) if partials else (doc, tf, num)
 
 
@@ -106,7 +106,7 @@ def bm25_blocks_compact(cplanes_docs, coff_docs, bw_docs, first_doc,
         idf.data_ptr(), active.data_ptr(), _f32(k1 + 1.0), doc.data_ptr(),
         tf.data_ptr(), num.data_ptr(), S, _build.stream_ptr(cplanes_docs))
     _build.check(rc, "bm25_blocks_compact")
-    _build.LAUNCHES["bm25_blocks_compact"] += 1
+    _build.count_launch("bm25_blocks_compact")
     return doc, tf, num
 
 
@@ -155,5 +155,5 @@ def bm25_blocks_midgrid(packed_docs, bw_docs, first_doc, packed_tf, bw_tf,
         int(block_rows), kth.data_ptr(), doc.data_ptr(), tf.data_ptr(),
         num.data_ptr(), skip.data_ptr(), S, _build.stream_ptr(packed_docs))
     _build.check(rc, "bm25_blocks_midgrid")
-    _build.LAUNCHES["bm25_blocks_midgrid"] += 1
+    _build.count_launch("bm25_blocks_midgrid")
     return doc, tf, num, skip

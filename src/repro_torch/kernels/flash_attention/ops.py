@@ -95,5 +95,5 @@ def launch(kernel: str, q, k, v, *, causal: bool = True, window: int = 0,
         args.append(_DTYPES[q.dtype])
     rc = getattr(_build.lib(source), entry)(*args, _build.stream_ptr(q))
     _build.check(rc, kernel)
-    _build.LAUNCHES[kernel] += 1
+    _build.count_launch(kernel)
     return out

@@ -44,7 +44,7 @@ def pack(deltas: torch.Tensor):
         deltas.data_ptr(), packed.data_ptr(), bw.data_ptr(), nb,
         _build.stream_ptr(deltas))
     _build.check(rc, "pack")
-    _build.LAUNCHES["pack"] += 1
+    _build.count_launch("pack")
     return packed, bw
 
 
@@ -63,5 +63,5 @@ def unpack(packed: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
         packed.data_ptr(), bw.data_ptr(), out.data_ptr(), nb,
         _build.stream_ptr(packed))
     _build.check(rc, "unpack")
-    _build.LAUNCHES["unpack"] += 1
+    _build.count_launch("unpack")
     return out

@@ -3,7 +3,9 @@
 Retrieval (the default): index, refresh, serve BM25 top-k through the
 fixed-slot ``QueryScheduler``, keep indexing, refresh and serve again,
 then delete and update served docs, refresh and serve once more —
-asserting that no tombstoned doc surfaces.
+asserting that no tombstoned doc surfaces. ``--refresh-every S`` runs the
+indexer's NRT refresh daemon at that period, and the phase after the
+deletes serves the daemon's snapshot instead of a manual refresh.
 
 LM (``--mode lm``): batched prefill of ``--requests`` random prompts of
 ``--prompt-len`` tokens, then ``--gen`` greedy tokens decoded over the KV
@@ -13,6 +15,7 @@ launcher's LM mode; the port keeps retrieval as its default mode).
   python -m repro_torch.launch.serve                       # smoke, on CUDA
   python -m repro_torch.launch.serve --device cpu          # plain PyTorch
   python -m repro_torch.launch.serve --device cpu --index-dir DIR
+  python -m repro_torch.launch.serve --device cpu --refresh-every 0.05
   python -m repro_torch.launch.serve --config full --docs 1048576 \\
       --batch-docs 16384 --requests 1024
   python -m repro_torch.launch.serve --mode lm --device cpu   # gemma2 smoke
@@ -163,7 +166,8 @@ def serve_retrieval(args):
     n_batches = max(args.docs // args.batch_docs, 2)
     half = n_batches // 2
     target_dir = FSDirectory(args.index_dir) if args.index_dir else None
-    ix = Indexer(cfg=cfg, device=device, target_dir=target_dir)
+    ix = Indexer(cfg=cfg, device=device, target_dir=target_dir,
+                 refresh_every=args.refresh_every)
     recovered_docs = sum(s.live_doc_count
                          for s in ix.merger.live_segments())
     report = {"device": str(device), "docs": n_batches * args.batch_docs}
@@ -264,7 +268,17 @@ def serve_retrieval(args):
             d = int(d)
             ix.update(d, batches[d % n_batches][d % args.batch_docs])
         t0 = time.perf_counter()
-        sched.swap_searcher(ix.refresh())
+        if args.refresh_every:
+            # the daemon folds the deletes in and swaps ix.searcher: wait
+            # for two ticks, since one in flight when r0 is read may
+            # predate the acks, but the next one started after them
+            r0 = ix.stats.refreshes
+            deadline = time.time() + max(40 * args.refresh_every, 10.0)
+            while ix.stats.refreshes < r0 + 2 and time.time() < deadline:
+                time.sleep(args.refresh_every / 4)
+            sched.swap_searcher(ix.searcher)
+        else:
+            sched.swap_searcher(ix.refresh())
         report["refresh3_s"] = time.perf_counter() - t0
         done3, _ = _serve(sched, reqs[:args.slots], device)
         got = np.concatenate([r.doc_ids for r in done3]) if done3 \
@@ -272,10 +286,10 @@ def serve_retrieval(args):
         gone = set(del_ids.tolist()) | set(upd_ids.tolist())
         assert not (set(got[got >= 0].tolist()) & gone), \
             "a tombstoned doc surfaced after its delete was acknowledged"
-        snap = ix.merger.snapshot()
+        rep = ix.envelope_report()
         print(f"lifecycle: deleted {len(del_ids)} + updated {len(upd_ids)} "
               f"docs; {sched.searcher.n_docs} live "
-              f"({snap['deleted_docs']} tombstoned awaiting merge); "
+              f"({rep['deleted_docs']} tombstoned awaiting merge); "
               f"no deleted doc served")
         phases["lifecycle"] = (sched.searcher, done3)
         report.update(deleted=len(del_ids), updated=len(upd_ids))
@@ -329,6 +343,9 @@ def build_parser():
                          "next snapshot never returns them")
     ap.add_argument("--updates", type=int, default=4,
                     help="replace this many served docs (delete + re-add)")
+    ap.add_argument("--refresh-every", type=float, default=0.0,
+                    help="run the NRT refresh daemon at this period (s); "
+                         "the phase after the deletes serves its snapshot")
     ap.add_argument("--index-dir", default=None,
                     help="durable FSDirectory index: commit, recover from "
                          "disk, then serve (resumes an existing index at "

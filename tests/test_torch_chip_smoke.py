@@ -5,11 +5,21 @@ instantiations), compact and the four midgrid walk instantiations are
 there without spills, and fails when one is missing or spills
 (``unpack_kernel`` must not stand in for ``pack_kernel``); the SIMT flash
 gate fails when a D = 256 instantiation (f32 or bf16) spills or is
-missing."""
+missing. The pure helpers of the ``[envelope]`` and ``[steady]`` phases
+(the arrival rate from ``[slice]``'s QPS, each gate's comparisons, the
+deleted-doc and result-cache checks, the live segments' file bytes) pass
+on sound inputs and fail on a planted fault each; launch counting and
+``ShapeRecorder`` count exactly from 8 threads at once."""
+import dataclasses
 import importlib.util
+import sys
+import threading
+import time
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 from repro_torch.kernels import _build
 
@@ -97,3 +107,288 @@ def test_simt_flash_gate_fails_on_a_d256_spill_or_a_missing_kernel(
         SIMT, **{fault: kernel}))
     with pytest.raises(AssertionError, match="missing or spills"):
         chip_smoke.simt_build_check()
+
+
+def _threads(fn, n: int = 8, calls: int = 2000):
+    """``fn`` called ``calls`` times from each of ``n`` threads released
+    together, switching threads as often as the interpreter allows."""
+    barrier = threading.Barrier(n)
+
+    def run():
+        barrier.wait()
+        for _ in range(calls):
+            fn()
+    ts = [threading.Thread(target=run) for _ in range(n)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in ts)
+    return n * calls
+
+
+class _YieldingDict(dict):
+    """A dict whose reads give up the GIL: a read-modify-write of one of
+    its items that holds no lock loses updates between threads."""
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        time.sleep(0)
+        return value
+
+
+def test_launch_counts_are_exact_from_8_threads(monkeypatch):
+    monkeypatch.setattr(_build, "LAUNCHES", _YieldingDict(_build.LAUNCHES))
+    _build.reset_launches()
+    n = _threads(lambda: _build.count_launch("pack"), calls=1000)
+    assert _build.LAUNCHES["pack"] == n
+    _build.reset_launches()
+    assert not any(_build.LAUNCHES.values())
+
+
+def test_shape_recorder_counts_exactly_from_8_threads(chip_smoke):
+    from repro_torch.kernels.postings_pack import ops as pops
+    rec = chip_smoke.ShapeRecorder()
+    words = [torch.randint(0, 1 << 20, (nb, 128), dtype=torch.int32)
+             for nb in (1, 3, 5, 7)]
+    i = iter(range(10 ** 9))
+    with rec:
+        n = _threads(lambda: pops.pack(words[next(i) % 4]), calls=200)
+    assert sum(rec.counts["pack"].values()) == n
+    assert dict(rec.counts["pack"]) == {1: n // 4, 3: n // 4, 5: n // 4,
+                                        7: n // 4}
+    assert set(rec.args["pack"]) == {1, 3, 5, 7}
+    assert pops.pack is rec._orig[0]
+
+
+def test_steady_rate_is_half_the_slice_qps(chip_smoke):
+    assert chip_smoke.steady_rate(137.5) == 68.75
+    for bad in (0.0, -3.0, float("nan"), float("inf"), None):
+        with pytest.raises(AssertionError, match="QPS"):
+            chip_smoke.steady_rate(bad)
+
+
+PAIRS = (("nas", "ssd"), ("ssd", "ssd"))
+
+
+def _envelope_inputs():
+    reps = {("nas", "ssd"): {"bytes_read_measured": 1000,
+                             "index_bytes_encoded": 400,
+                             "gb_per_min_measured": 3.0},
+            ("ssd", "ssd"): {"bytes_read_measured": 1000,
+                             "index_bytes_encoded": 400,
+                             "gb_per_min_measured": 2.0}}
+    return reps, {p: 1000 for p in PAIRS}, {p: 400 for p in PAIRS}
+
+
+def test_envelope_gates_pass(chip_smoke):
+    assert chip_smoke.envelope_gates(*_envelope_inputs()) == 1.5
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("bytes_read", "bytes_read_measured"), ("encoded", "index_bytes_encoded"),
+    ("files", "index_bytes_encoded"), ("speedup_eq", "speedup"),
+    ("speedup_lt", "speedup")])
+def test_envelope_gates_fail_on_a_planted_fault(chip_smoke, fault, match):
+    reps, spooled, files = _envelope_inputs()
+    if fault == "bytes_read":
+        reps[PAIRS[0]]["bytes_read_measured"] += 1
+    elif fault == "encoded":
+        reps[PAIRS[1]]["index_bytes_encoded"] -= 1
+    elif fault == "files":
+        files[PAIRS[0]] += 16
+    elif fault == "speedup_eq":
+        reps[PAIRS[0]]["gb_per_min_measured"] = 2.0
+    else:
+        reps[PAIRS[0]]["gb_per_min_measured"] = 1.0
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.envelope_gates(reps, spooled, files)
+
+
+def _steady_inputs():
+    load = {"offered": 500, "completed": 500, "rejected": 0}
+    report = {"merge_concurrency": 2, "n_merges": 1}
+    launches = {"pack": 40, "bm25_blocks": 9, "bm25_blocks_midgrid": 300}
+    return load, 12, 10, report, launches
+
+
+def test_steady_gates_pass(chip_smoke):
+    chip_smoke.steady_gates(*_steady_inputs())
+
+
+@pytest.mark.parametrize("fault", [
+    "incomplete", "rejected", "refreshes", "generations", "threads",
+    "merges", "pack", "bm25_blocks", "bm25_blocks_midgrid"])
+def test_steady_gates_fail_on_a_planted_fault(chip_smoke, fault):
+    load, refreshes, gens, report, launches = _steady_inputs()
+    if fault == "incomplete":
+        load["completed"] -= 1
+    elif fault == "rejected":
+        load["rejected"] = 1
+    elif fault == "refreshes":
+        refreshes = 9
+    elif fault == "generations":
+        gens = 9
+    elif fault == "threads":
+        report["merge_concurrency"] = 0
+    elif fault == "merges":
+        report["n_merges"] = 0
+    else:
+        launches[fault] = 0
+    with pytest.raises(AssertionError, match=r"\[steady\] gates"):
+        chip_smoke.steady_gates(load, refreshes, gens, report, launches)
+
+
+def test_wait_for_new_generation_returns_on_a_swap_and_raises_without(
+        chip_smoke):
+    from types import SimpleNamespace
+    ix = SimpleNamespace(searcher=SimpleNamespace(generation=3))
+    with pytest.raises(AssertionError, match="no refresh surfaced a change "
+                                             "to generation 3"):
+        chip_smoke.wait_for_new_generation(ix, 3, 0.05)
+    timer = threading.Timer(0.05, lambda: setattr(
+        ix, "searcher", SimpleNamespace(generation=4)))
+    timer.start()
+    try:
+        assert chip_smoke.wait_for_new_generation(ix, 3, 10.0) > 0
+    finally:
+        timer.cancel()
+
+
+def test_steady_churn_surfaces_each_change_in_its_own_generation(
+        chip_smoke):
+    """The churn on a CPU indexer with the refresh daemon: every tick
+    flushes (SMOKE over 32-doc batches) and every 4th also deletes, and
+    each tick ends only when the daemon has swapped in a new generation."""
+    from repro_torch.configs.lucene_envelope import SMOKE
+    from repro_torch.core.indexer import Indexer
+    from repro_torch.data.corpus import TINY, SyntheticCorpus
+    corpus = SyntheticCorpus(TINY, doc_buffer_len=SMOKE.doc_len)
+    batches = [corpus.batch(i, 32) for i in range(9)]
+    ix = Indexer(cfg=SMOKE, device="cpu", refresh_every=0.02)
+    gens = []
+    try:
+        ix.index_batch(batches[0])
+        ix.refresh()
+        ix.on_refresh.append(lambda s: gens.append(s.generation))
+        q = np.stack([np.unique(batches[0])[1:5].astype(np.int32)] * 4)
+        churn, state = chip_smoke._steady_churn(ix, batches[1:], q, 10)
+        seen = [ix.searcher.generation]
+        for _ in range(8):
+            churn()
+            seen.append(ix.searcher.generation)
+        churn()                       # past the last batch: no tick
+        assert state.tick == 8 and state.done.is_set()
+        assert state.error is None and state.waited_s > 0
+        assert len(state.deleted) == 2 * chip_smoke.STEADY_DELETES
+        assert len(set(seen)) == 9    # a generation after every tick
+        assert len(set(gens)) >= 8
+    finally:
+        ix.close()
+
+
+def test_miss_latency_counts_only_uncached_completed_requests(chip_smoke):
+    from types import SimpleNamespace as R
+    reqs = [R(done=True, cached=True, t_submit=0.0, t_done=0.0)] * 50 + [
+        R(done=True, cached=False, t_submit=1.0, t_done=1.0 + ms / 1e3)
+        for ms in range(1, 101)] + [
+        R(done=False, cached=False, t_submit=0.0, t_done=9.0)]
+    got = chip_smoke.miss_latency_ms(reqs)
+    want = np.percentile(np.arange(1, 101, dtype=np.float64), [50, 99, 99.9])
+    assert got["misses"] == 100
+    np.testing.assert_allclose(
+        [got["p50_ms"], got["p99_ms"], got["p999_ms"]], want, rtol=1e-9)
+    assert chip_smoke.miss_latency_ms(reqs[:50]) == {
+        "misses": 0, "p50_ms": 0.0, "p99_ms": 0.0, "p999_ms": 0.0}
+
+
+def test_check_no_deleted(chip_smoke):
+    ids = np.array([[3, 9, -1], [4, 5, 6]])
+    assert chip_smoke.check_no_deleted(ids, [7, 8, -1]) == 6
+    with pytest.raises(AssertionError, match=r"deleted docs served: \[5\]"):
+        chip_smoke.check_no_deleted(ids, [7, 5])
+
+
+@pytest.fixture(scope="module")
+def served():
+    """A small CPU index served through a cached scheduler: the cache's
+    entries and the snapshot they were computed on."""
+    from repro_torch.configs.lucene_envelope import SMOKE
+    from repro_torch.core.indexer import Indexer
+    from repro_torch.serving.steady import (QueryRequest, QueryScheduler,
+                                            ResultCache)
+    rng = np.random.default_rng(0)
+    ix = Indexer(cfg=SMOKE, device="cpu")
+    try:
+        toks = rng.integers(1, 4096, (32, 64)).astype(np.int32)
+        ix.index_batch(toks)
+        ix.index_batch(rng.integers(1, 4096, (32, 64)).astype(np.int32))
+        s = ix.refresh()
+        cache = ResultCache()
+        sched = QueryScheduler(searcher=s, slots=4, max_terms=4, k=5,
+                               cache=cache, device="cpu")
+        for i in range(40):
+            sched.submit(QueryRequest(rid=i, terms=toks[i % 32, i // 32:][
+                :4], k=5))
+        sched.run_to_completion()
+    finally:
+        ix.close()
+    return dict(cache._store), s
+
+
+def test_check_cache_entries_pass(chip_smoke, served):
+    entries, s = served
+    assert chip_smoke.check_cache_entries(entries, s, 5) == len(entries)
+    assert len(entries) > 32            # two batches of the check
+
+
+@pytest.mark.parametrize("fault", ["score", "id", "late_row"])
+def test_check_cache_entries_fail_on_a_planted_fault(chip_smoke, served,
+                                                     fault):
+    """A score a bit off, or an id that does not carry the score it is
+    returned with (in the first batch, or in the second)."""
+    entries, s = served
+    key = list(entries)[35 if fault == "late_row" else 2]
+    vals, ids = (a.copy() for a in entries[key])
+    if fault == "score":
+        vals[1] = np.nextafter(vals[1], np.float32(np.inf))
+    else:
+        ids[0] = ids[-1] if ids[-1] != ids[0] else ids[0] + 1
+    planted = dict(entries)
+    planted[key] = (vals, ids)
+    with pytest.raises(AssertionError, match="differs from an uncached|"
+                                             "score it does not have|"
+                                             "repeats"):
+        chip_smoke.check_cache_entries(planted, s, 5)
+
+
+def test_live_file_bytes_equal_the_reports_encoded_bytes(chip_smoke,
+                                                         tmp_path):
+    """What [envelope] holds ``index_bytes_encoded`` to: the newest
+    commit's segment files on the file system, ``.liv`` included; a
+    byte more on one file shows."""
+    from repro_torch.configs.lucene_envelope import SMOKE
+    from repro_torch.core.indexer import Indexer
+    from repro_torch.storage import FSDirectory
+    cfg = dataclasses.replace(SMOKE, codec="raw")
+    rng = np.random.default_rng(1)
+    ix = Indexer(cfg=cfg, device="cpu", target_dir=FSDirectory(tmp_path))
+    try:
+        for _ in range(3):
+            ix.index_batch(rng.integers(1, 4096, (16, 64)).astype(np.int32))
+        ix.delete([2, 20])
+        ix.commit()
+        rep = ix.envelope_report()
+    finally:
+        ix.close()
+    got = chip_smoke._live_file_bytes(tmp_path)
+    assert got == rep["index_bytes_encoded"] > 0
+    assert any(p.suffix == ".liv" for p in tmp_path.iterdir())
+    victim = next(p for p in tmp_path.iterdir() if p.suffix == ".pst")
+    victim.write_bytes(victim.read_bytes() + b"x")
+    assert chip_smoke._live_file_bytes(tmp_path) == got + 1

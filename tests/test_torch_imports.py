@@ -1,7 +1,9 @@
-"""The port stands alone: no module of ``src/repro_torch`` imports JAX or
-anything of the JAX package ``repro`` (checked in a fresh interpreter and
-by a source scan), and no kernel call sits under a ``try`` that could
-fall back to the plain version."""
+"""The port stands alone: no module of ``src/repro_torch`` and no
+``examples/torch_*.py`` imports JAX or anything of the JAX package
+``repro`` (checked in a fresh interpreter and by a source scan), and no
+kernel call sits under a ``try`` that could fall back to the plain
+version. The one ``try`` on the refresh daemon's path only hands the
+error it died of to ``close()``, which raises it."""
 import ast
 import json
 import re
@@ -11,6 +13,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "src" / "repro_torch"
+EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
+# the modules this slice ported (each must be among those checked)
+SLICE8 = {"repro_torch.core.envelope", "repro_torch.core.tokenize",
+          "repro_torch.io", "repro_torch.io.reader",
+          "repro_torch.serving.steady", "repro_torch.core.indexer"}
 # calls that reach a hand-written kernel (the ops and what wraps them)
 KERNEL_CALLS = {"pack", "unpack", "bm25_blocks", "bm25_blocks_partials",
                 "bm25_blocks_midgrid", "lib", "build_all", "pp_pack",
@@ -32,19 +39,28 @@ KERNEL_CALLS = {"pack", "unpack", "bm25_blocks", "bm25_blocks_partials",
                 "generate", "serve_lm"}
 
 
-def _modules():
+def _modules(examples: bool = False):
     for path in sorted(PKG.rglob("*.py")):
         rel = path.relative_to(PKG.parent).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         yield path, ".".join(parts)
+    if examples:
+        for path in EXAMPLES:
+            yield path, f"examples.{path.stem}"
 
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
     names = [m for _, m in _modules()]
+    assert SLICE8 <= set(names)
+    assert {p.stem for p in EXAMPLES} == {
+        "torch_quickstart", "torch_index_corpus", "torch_serve_retrieval"}
     code = (
-        "import importlib, json, sys\n"
+        "import importlib, importlib.util, json, sys\n"
         f"for m in {names!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
         " or m.startswith('repro.'))\n"
@@ -61,7 +77,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
 def test_no_jax_or_repro_import_lines():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)")
     bad = [f"{p.relative_to(REPO)}:{i}: {line.strip()}"
-           for p, _ in _modules()
+           for p, _ in _modules(examples=True)
            for i, line in enumerate(p.read_text().splitlines(), 1)
            if pat.match(line)]
     assert not bad, "\n".join(bad)
@@ -77,7 +93,7 @@ def _called_names(node):
 
 def test_no_kernel_call_under_try():
     bad = []
-    for path, mod in _modules():
+    for path, mod in _modules(examples=True):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if not isinstance(node, ast.Try):
@@ -90,3 +106,64 @@ def test_no_kernel_call_under_try():
                 bad.append(
                     f"{mod}:{node.lineno}: {sorted(hit & KERNEL_CALLS)}")
     assert not bad, "\n".join(bad)
+
+
+def _methods(tree):
+    return {n.name: n for n in ast.walk(tree)
+            if isinstance(n, ast.FunctionDef)}
+
+
+def _own_nodes(fn):
+    """``fn``'s nodes, without those of functions defined inside it."""
+    todo = list(ast.iter_child_nodes(fn))
+    while todo:
+        n = todo.pop()
+        yield n
+        if not isinstance(n, (ast.FunctionDef, ast.Lambda)):
+            todo.extend(ast.iter_child_nodes(n))
+
+
+def _reaches_kernel(fn, methods, seen=()):
+    """A kernel call in ``fn``, or in a method of the same module it
+    calls as ``self.<name>()``, transitively."""
+    names = set(_called_names(fn))
+    if names & KERNEL_CALLS:
+        return True
+    return any(_reaches_kernel(methods[n], methods, seen + (n,))
+               for n in names if n in methods and n not in seen)
+
+
+def test_daemon_and_merge_paths_catch_no_kernel_failure():
+    """Followed through the functions each calls: no ``try`` with a
+    handler on the refresh daemon's, the merge threads' or serving's
+    path wraps a kernel call, except two that hand what their thread died
+    of to the caller, who raises it: the daemon's (stored in
+    ``_refresh_error``; ``close()`` raises it) and the open-loop driver's
+    churn thread (``churn_err``; ``run_open_loop`` raises it)."""
+    found = {}
+    trees = {rel: ast.parse((PKG / rel).read_text())
+             for rel in ("core/indexer.py", "core/merge.py",
+                         "serving/steady.py", "serving/query_scheduler.py")}
+    for rel, tree in trees.items():
+        methods = _methods(tree)
+        for fn in methods.values():
+            for node in _own_nodes(fn):
+                if isinstance(node, ast.Try) and node.handlers \
+                        and _reaches_kernel(ast.Module(
+                            body=node.body, type_ignores=[]), methods):
+                    found[(rel, fn.name)] = node
+    handed = {("core/indexer.py", "_refresh_daemon"):
+              ("self._refresh_error = e", "close", "err"),
+              ("serving/steady.py", "_churn_loop"):
+              ("churn_err.append(e)", "run_open_loop", "churn_err[0]")}
+    assert set(found) == set(handed)
+    for (rel, _), node in found.items():
+        store, raiser, raised = handed[(rel, _)]
+        (handler,) = node.handlers
+        assert handler.name == "e"
+        assert ast.unparse(handler.body[0]) == store
+        assert all(isinstance(st, (ast.Return, ast.Assign, ast.Expr))
+                   for st in handler.body)
+        fn = _methods(trees[rel])[raiser]
+        assert any(isinstance(n, ast.Raise) and n.exc is not None
+                   and ast.unparse(n.exc) == raised for n in ast.walk(fn))
