@@ -94,8 +94,9 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               ``calibrate()`` refitted with both runs;
 11. steady  — serving while indexing, open loop: an ``Indexer`` with the
               refresh daemon (1 s) and 2 merge threads, a cached
-              ``QueryScheduler`` attached; 4 seed batches, then Poisson
-              arrivals at half [slice]'s QPS while 36 batches are
+              ``QueryScheduler`` attached; 4 seed batches (the warm probe
+              timed once more, uncached, and its QPS printed), then
+              Poisson arrivals at a fixed 75 QPS while 36 batches are
               ingested and 8 served docs deleted every 4th tick, a tick
               that flushed or deleted ending when the daemon has
               swapped in a new generation. Gates:
@@ -105,8 +106,23 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               scores, no deleted doc served, the last generation's cache
               entries == uncached searches. Latency is reported for all
               arrivals and for the cache misses alone;
-12. examples — ``examples/torch_*.py`` on the card, each must exit 0;
-13. timing  — each kernel on the very inputs the paths gave it, at every
+12. fleet   — the replicated fleet (``repro_torch.replication``): 2 range
+              shards x 2 replicas at CONFIG width, 2^16 docs a shard
+              committed, then 2^14 more and 8 deletes a shard and a second
+              commit; shard 0's replicas are ``ReplicaSyncer``s in this
+              process, shard 1's ``RemoteReplica`` processes, each with its
+              own CUDA context; first and delta sync (wall, lag, files,
+              bytes); 16 closed-loop batches of 32 queries through
+              ``FleetSearcher``; a rotted ``.pst`` found by a sweep and
+              quarantined (8 degraded batches, none served by it), then
+              ``repair``; a rotted ``.doc`` on a replica process healed
+              by ``anti_entropy``; 2 batches after each heal. Gates: every
+              batch == the union oracle over the shards' commits (values
+              bit for bit, ids by true score), no deleted doc served;
+              unpack and bm25_blocks or midgrid launched in this process
+              and in each replica process;
+13. examples — ``examples/torch_*.py`` on the card, each must exit 0;
+14. timing  — each kernel on the very inputs the paths gave it, at every
               shape it was launched with (blocks; for flash attention
               batch, length and window): held against its plain version
               once more, then its median device time over 21 launches
@@ -129,10 +145,12 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 
 In every counted run (the LM path, the f32 LM prefills, the slice, the
 durable path's indexing + recovery + serving and its WAL run, each
-envelope pair's indexing + recovery + serving, and steady's whole run)
-the launch counts are zeroed just before and read just after (after
-every thread the run started has been joined), never around a
-comparison, and every kernel of the path must have launched.
+envelope pair's indexing + recovery + serving, steady's whole run, and
+the fleet's writers, syncs, serving and heals) the launch counts are
+zeroed just before and read just after (after every thread the run
+started has been joined; a replica process counts its own from its
+start and reports them), never around a comparison, and every kernel of
+the path must have launched.
 
 The durable path runs at ``--docs`` (2^20 by default) and may not be cut;
 the in-memory slice runs at ``--docs // SLICE_CUT``: at 2^20 docs each,
@@ -142,14 +160,15 @@ limit, and only the earlier path's depth may be cut; with the LM phases
 and the slice at 2^19 the script took 916.8 s, so the slice ran at
 2^18. With [envelope], [steady] and [examples] added the script's own
 total was 986.2 s with the slice at 2^18 and 896.9-897.4 s at 2^17 (the
-same card), so the slice runs at 2^17. [steady]'s arrivals are paced at half the
-slice's QPS (201.75 at 2^18, 603.43 at 2^17): at 2^17 they outrun what
-[steady] serves while it indexes, and its tail shows it.
+same card), so the slice runs at 2^17. [steady]'s arrivals were once paced at
+half the slice's QPS and followed its depth (201.75 offered at 2^18,
+603.43 at 2^17); they now come at a fixed 75 QPS.
 
-Prints the kernels as one JSON line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. Details (ptxas report, every timing,
-the profiles) go to ``<--out>/chip_smoke.json``, ``build/chip_smoke/`` by
-default. Imports nothing of JAX.
+Prints the script's ``total_s``, the kernels as one JSON line, the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Details
+(ptxas report, every timing, the profiles) go to
+``<--out>/chip_smoke.json``, ``build/chip_smoke/`` by default. Imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -1311,6 +1330,10 @@ STEADY_TICKS = 36                   # churn ticks, one batch each
 STEADY_DELETE_EVERY = 4             # every 4th tick deletes ...
 STEADY_DELETES = 8                  # ... this many served docs
 STEADY_MIN_REFRESHES = 10           # daemon refreshes, and generations
+# the open-loop arrival rate, fixed: the JAX package's serve_steady bench
+# offers 75 QPS (benchmarks/run.py:1087). Paced from [slice]'s QPS, the
+# load followed the slice's depth, not what [steady] serves.
+STEADY_QPS = 75.0
 # 4-term queries the arrivals draw, drawn as [slice] draws its queries:
 # a hot set that repeats, so the result cache answers most arrivals.
 # [slice]'s 1024 distinct queries at its half rate would send most
@@ -1324,7 +1347,16 @@ STEADY_SECONDS = 90.0               # of arrivals
 STEADY_TICK_GAP = 0.25
 STEADY_SURFACE_S = 60.0             # the longest a change may take to surface
 EXAMPLES = ("torch_quickstart.py", "torch_index_corpus.py",
-            "torch_serve_retrieval.py")
+            "torch_serve_retrieval.py", "torch_serve_fleet.py")
+FLEET_SHARDS = 2                    # range shards, each with ...
+FLEET_REPLICAS = 2                  # ... this many replicas
+FLEET_BATCHES = 4                   # of --batch-docs a shard (2^16 docs) ...
+FLEET_DELETES = 8                   # ... then one more batch and 8 deletes
+FLEET_RANGE = 1 << 24               # shard si owns ids [si, si + 1) * this
+FLEET_SERVE_BATCHES = 16            # closed-loop batches of 32 queries
+FLEET_DEGRADED_BATCHES = 8          # served while a replica is quarantined
+FLEET_HEALED_BATCHES = 2            # served after each heal
+FLEET_TIMEOUT_S = 600.0             # the longest a replica process may take
 
 
 def _live_file_bytes(path) -> int:
@@ -1500,15 +1532,32 @@ def phase_envelope(args, dev, card, rec, made=(), k: int = 10) -> tuple:
     return out, launches
 
 
-def steady_rate(slice_qps: float) -> float:
-    """[steady]'s open-loop arrival rate: half the closed-loop QPS that
-    this run's [slice] measured."""
-    import math
-    if not (isinstance(slice_qps, (int, float)) and math.isfinite(slice_qps)
-            and slice_qps > 0):
-        raise AssertionError(f"[slice] measured no QPS to pace [steady] "
-                             f"with: {slice_qps}")
-    return slice_qps / 2
+def probe_qps(searcher, pool, slots: int, max_terms: int, k: int) -> dict:
+    """Closed loop, no cache: ``warm_searcher``'s probe batches (every
+    pow2 batch bucket up to ``slots`` at every pow2 occupancy) run once
+    more over ``searcher``; its queries over the wall time. Results come
+    back on the host, so the clock brackets the device's work. A probe
+    that served no query measured nothing, and fails."""
+    import numpy as np
+    from repro_torch.serving.steady import warm_searcher
+
+    class _Counting:
+        def __init__(self):
+            self.queries = 0
+
+        def search_batched(self, q, kk):
+            self.queries += int((np.asarray(q) >= 0).any(axis=1).sum())
+            return searcher.search_batched(q, kk)
+
+    counting = _Counting()
+    t0 = time.perf_counter()
+    warm_searcher(counting, pool, slots, max_terms, k)
+    secs = time.perf_counter() - t0
+    if not (counting.queries > 0 and secs > 0):
+        raise AssertionError(f"the probe measured no QPS: "
+                             f"{counting.queries} queries in {secs} s")
+    return {"queries": counting.queries, "s": secs,
+            "qps": counting.queries / secs}
 
 
 def miss_latency_ms(requests) -> dict:
@@ -1658,13 +1707,13 @@ def _steady_churn(ix, batches, q_del, k: int):
     return churn, state
 
 
-def phase_steady(args, dev, card, rec, slice_qps: float, made=(),
-                 k: int = 10) -> tuple:
+def phase_steady(args, dev, card, rec, made=(), k: int = 10) -> tuple:
     """Serving while indexing, open loop: an ``Indexer`` with the refresh
     daemon (1 s) and two merge threads, a ``QueryScheduler`` (32 slots, 4
     terms, k=10, 2 ms, a ``ResultCache``) attached to it; seeded with
-    STEADY_SEED_BATCHES batches, refreshed and warmed; then Poisson
-    arrivals at half [slice]'s QPS while the churn hook ingests
+    STEADY_SEED_BATCHES batches, refreshed and warmed (and the warm probe
+    timed once more, uncached); then Poisson arrivals at STEADY_QPS while
+    the churn hook ingests
     STEADY_TICKS more batches and deletes served docs. Ticks left when
     serving ends run after it. ``made``: batches of this corpus made
     already (the durable path's). Returns (report, launches)."""
@@ -1709,7 +1758,6 @@ def phase_steady(args, dev, card, rec, slice_qps: float, made=(),
     pool = [rng.choice(vocab, 4, replace=False).astype(np.int32)
             for _ in range(STEADY_POOL)]
     q_pool = np.stack(pool)
-    rep["qps_target"] = qps = steady_rate(slice_qps)
     refreshes = []            # (thread name, seconds) of every refresh
     snapshots = {}            # generation -> searcher, the last few
     swapped = set()           # every generation a refresh swapped in
@@ -1741,6 +1789,8 @@ def phase_steady(args, dev, card, rec, slice_qps: float, made=(),
             t0 = time.perf_counter()
             warm_searcher(searcher, pool, 32, 4, k)
             rep["warm_s"] = time.perf_counter() - t0
+            rep["probe"] = probe = probe_qps(searcher, pool, 32, 4, k)
+            rep["qps_target"] = qps = STEADY_QPS
             churn, state = _steady_churn(
                 ix, batches[STEADY_SEED_BATCHES:], q_pool[:32], k)
             rep["duration_s"] = STEADY_SECONDS
@@ -1783,8 +1833,10 @@ def phase_steady(args, dev, card, rec, slice_qps: float, made=(),
         if ticked > 0 else 0.0)
     hit_rate = load.cached / max(load.completed, 1)
     rep["miss_latency"] = miss = miss_latency_ms(load.requests)
-    print(f"[steady] on {card}: open loop at {qps:.2f} QPS offered (half "
-          f"[slice]'s {slice_qps:.2f}) for {rep['duration_s']:.1f}s: "
+    print(f"[steady] on {card}: open loop at {qps:.2f} QPS offered "
+          f"(fixed; the seeded snapshot serves {probe['qps']:.2f} QPS "
+          f"closed loop without a cache: {probe['queries']} probe queries "
+          f"in {probe['s']:.3f}s) for {rep['duration_s']:.1f}s: "
           f"{load.completed} of {load.offered} completed, {load.rejected} "
           f"rejected, achieved {load.qps_achieved:.2f} QPS in "
           f"{load.wall_s:.2f}s; latency p50 {load.p50_ms:.2f} ms p99 "
@@ -1843,6 +1895,320 @@ def phase_steady(args, dev, card, rec, slice_qps: float, made=(),
           f"score)", flush=True)
     del ix, sched, searcher, served_searcher, final, dense, cache, batches
     snapshots.clear()
+    return rep, launches
+
+
+def fleet_deletes(tokens, terms, base: int, n: int):
+    """``n`` doc ids of a shard's first batch to delete: the docs that hold
+    the most of ``terms`` (the first serve batch's), the lower row first
+    among equals; row r of the batch is doc ``base + r``. Deletes picked
+    so the served batches would return them if they were not honoured."""
+    import numpy as np
+    hits = np.isin(np.asarray(tokens), np.asarray(terms)).sum(axis=1)
+    rows = np.argsort(-hits, kind="stable")[:n]
+    return np.sort(base + rows.astype(np.int64))
+
+
+def fleet_gates(here: dict, children: dict, shed: int, failovers: int,
+                degraded_served: int) -> None:
+    """The [fleet] gates on what the counted run recorded: unpack, and
+    bm25_blocks or midgrid, launched in this process (the writers and the
+    in-process replicas) and in each replica process (``children``:
+    replica id -> its launch counts), pack in this process; the
+    quarantined replica served none of the degraded batches, at least one
+    pick failed over to its peer, and no shard was served degraded."""
+    bad = []
+    for who, n in [("this process", here)] + sorted(children.items()):
+        if n.get("unpack", 0) <= 0:
+            bad.append(f"{who}: unpack never launched")
+        if n.get("bm25_blocks", 0) + n.get("bm25_blocks_midgrid", 0) <= 0:
+            bad.append(f"{who}: neither bm25_blocks nor midgrid launched")
+    if here.get("pack", 0) <= 0:
+        bad.append("this process: pack never launched")
+    if shed:
+        bad.append(f"the quarantined replica served {shed} batches")
+    if failovers < 1:
+        bad.append("no pick failed over to the healthy peer")
+    if degraded_served:
+        bad.append(f"{degraded_served} shards served degraded")
+    if bad:
+        raise AssertionError("[fleet] gates: " + "; ".join(bad))
+
+
+def _rot(directory, name: str) -> None:
+    """Flip one byte in the middle of ``name`` on ``directory``."""
+    data = bytearray(directory.read_file(name))
+    data[len(data) // 2] ^= 0xFF
+    directory.write_file(name, bytes(data))
+
+
+def phase_fleet(args, dev, card, rec, made=(), k: int = 10) -> tuple:
+    """The replicated fleet on the card (phase 12 of the module
+    docstring). Counted run: FLEET_SHARDS range-shard writers (full
+    CONFIG, a ``CommitPublisher`` each) index FLEET_BATCHES batches and
+    commit; shard 0's replicas are ``ReplicaSyncer``s in this process,
+    shard 1's ``RemoteReplica`` processes, all on ``dev``; first sync;
+    one more batch and FLEET_DELETES deletes a shard, a second commit,
+    delta sync; FLEET_SERVE_BATCHES closed-loop batches of 32 queries
+    through ``FleetSearcher``; a rotted ``.pst`` on an in-process replica
+    found by a sweep and quarantined, FLEET_DEGRADED_BATCHES batches,
+    ``repair``; a rotted ``.doc`` on a replica process healed by
+    ``anti_entropy``; FLEET_HEALED_BATCHES batches after each heal. Then,
+    not counted, every served batch against the union oracle (values bit
+    for bit, ids by true score, no deleted doc). ``made``: batches of
+    this corpus made already. Returns (report, launches of this process
+    and the replica processes, summed)."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    from repro_torch.configs.lucene_envelope import CONFIG
+    from repro_torch.data.corpus import CW09B_SMALL, SyntheticCorpus
+    from repro_torch.launch import serve
+
+    per = FLEET_BATCHES + 1
+    n_batches = FLEET_SHARDS * per
+    corpus = SyntheticCorpus(dataclasses.replace(
+        CW09B_SMALL, n_docs=n_batches * args.batch_docs),
+        doc_buffer_len=CONFIG.doc_len)
+    t0 = time.perf_counter()
+    batches = (list(made[:n_batches]) if len(made) >= n_batches else
+               serve.generate_batches(corpus, n_batches, args.batch_docs))
+    rep = {"generate_s": time.perf_counter() - t0,
+           "docs_per_shard": FLEET_BATCHES * args.batch_docs,
+           "delta_docs_per_shard": args.batch_docs}
+    rng = np.random.default_rng(0)
+    vocab = np.unique(batches[0][:32])[1:]
+    n_q = 32 * (FLEET_SERVE_BATCHES + FLEET_DEGRADED_BATCHES
+                + 2 * FLEET_HEALED_BATCHES)
+    qbatches = list(np.stack([rng.choice(vocab, 4, replace=False)
+                              for _ in range(n_q)]).astype(np.int32)
+                    .reshape(-1, 32, 4))
+    tmp = ROOT / "build" / f"chip_smoke_fleet_{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    try:
+        return _fleet_run(dev, card, rec, batches, qbatches, tmp, rep, k)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fleet_run(dev, card, rec, batches, qbatches, tmp, rep, k):
+    """[fleet]'s counted run and checks, in ``tmp`` (see
+    ``phase_fleet``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.lucene_envelope import CONFIG
+    from repro_torch.core.indexer import Indexer
+    from repro_torch.core.searcher import ReaderCache
+    from repro_torch.kernels import _build
+    from repro_torch.replication import (CommitPublisher, FleetSearcher,
+                                         RemoteReplica, ReplicaSyncer)
+    from repro_torch.storage import ChecksumScrubber, FSDirectory, open_latest
+
+    per = FLEET_BATCHES + 1
+    queries = iter(qbatches)
+    writers, pubs, shards, remotes = [], [], [], []
+    served = []               # (label, q, vals, ids), checked after the run
+    syncs = {}                # replica id -> {"first"/"delta": summary}
+
+    def sync_all(label):
+        for si, group in enumerate(shards):
+            for r in group:
+                t = time.perf_counter()
+                out = r.sync_once()
+                wall = time.perf_counter() - t
+                if out is None:
+                    raise AssertionError(f"[fleet] {r.replica_id}: nothing "
+                                         f"to sync at the {label} sync")
+                if isinstance(r, RemoteReplica):
+                    # the child's ack, relayed into the writer's ledger
+                    pubs[si].ack(r.replica_id, out["gen"], out["lag_s"],
+                                 out["bytes"], files_shipped=out["files"])
+                syncs.setdefault(r.replica_id, {})[label] = dict(
+                    out, wall_s=wall)
+
+    def serve_batches(label, n, lat=None):
+        for _ in range(n):
+            q = next(queries)
+            t = time.perf_counter()
+            v, i = fleet.search_batched(q, k)
+            if lat is not None:
+                lat.append(time.perf_counter() - t)
+            served.append((label, q, v, i))
+
+    try:
+        _build.reset_launches()
+        with rec:
+            t0 = time.perf_counter()
+            for si in range(FLEET_SHARDS):
+                d = FSDirectory(str(tmp / f"s{si}" / "writer"))
+                pub = CommitPublisher(d)
+                ix = Indexer(cfg=CONFIG, device=dev, target_dir=d,
+                             publisher=pub, doc_base=si * FLEET_RANGE)
+                for b in batches[si * per:si * per + FLEET_BATCHES]:
+                    ix.index_batch(b)
+                ix.commit()
+                writers.append(ix)
+                pubs.append(pub)
+            rep["writers_s"] = time.perf_counter() - t0
+            for si in range(FLEET_SHARDS):
+                src = tmp / f"s{si}" / "writer"
+                paths = [tmp / f"s{si}" / f"r{ri}"
+                         for ri in range(FLEET_REPLICAS)]
+                group = []
+                for ri, path in enumerate(paths):
+                    peers = [p for p in paths if p != path]
+                    if si == 0:
+                        r = ReplicaSyncer(
+                            FSDirectory(str(path)), FSDirectory(str(src)),
+                            peers=[FSDirectory(str(p)) for p in peers],
+                            replica_id=f"s{si}r{ri}", publisher=pubs[si],
+                            device=dev)
+                    else:
+                        r = RemoteReplica(f"s{si}r{ri}", path, src,
+                                          peer_paths=peers, device=dev,
+                                          timeout_s=FLEET_TIMEOUT_S).start()
+                        remotes.append(r)
+                        pubs[si].register(r.replica_id)
+                    group.append(r)
+                shards.append(group)
+            sync_all("first")
+            fleet = FleetSearcher(shards, device=dev)
+            deleted = []
+            t0 = time.perf_counter()
+            for si, ix in enumerate(writers):
+                ids = fleet_deletes(batches[si * per], qbatches[0],
+                                    si * FLEET_RANGE, FLEET_DELETES)
+                ix.index_batch(batches[si * per + FLEET_BATCHES])
+                ix.delete(ids)
+                deleted += ids.tolist()
+                ix.commit()
+            rep["delta_commit_s"] = time.perf_counter() - t0
+            sync_all("delta")
+            lat = []
+            serve_batches("closed loop", FLEET_SERVE_BATCHES, lat)
+            closed = fleet.report()
+            # failover: bit rot on an in-process replica's disk, found by a
+            # sweep, quarantined; its traffic sheds to the healthy peer
+            bad = shards[0][0]
+            victim = next(n for n in sorted(bad.directory.list_files())
+                          if n.endswith(".pst"))
+            _rot(bad.directory, victim)
+            t0 = time.perf_counter()
+            found = ChecksumScrubber(bad.directory).sweep()
+            rep["sweep_ms"] = (time.perf_counter() - t0) * 1e3
+            if victim not in found:
+                raise AssertionError(f"[fleet] the sweep missed {victim}: "
+                                     f"{found}")
+            base = bad.quarantine(victim)
+            if bad.healthy or fleet.degraded:
+                raise AssertionError("[fleet] quarantine left the replica "
+                                     "healthy or the fleet degraded")
+            before = fleet.report()
+            serve_batches("degraded", FLEET_DEGRADED_BATCHES)
+            after = fleet.report()
+            t0 = time.perf_counter()
+            fix = bad.repair(base)
+            rep["repair_ms"] = (time.perf_counter() - t0) * 1e3
+            if fix["files"] < 1 or not bad.healthy:
+                raise AssertionError(f"[fleet] repair did not heal "
+                                     f"{bad.replica_id}: {fix}")
+            serve_batches("repaired", FLEET_HEALED_BATCHES)
+            # a second rot, on a replica process's disk: anti-entropy
+            pbad = shards[1][0]
+            pdir = FSDirectory(str(tmp / "s1" / "r0"))
+            victim2 = next(n for n in sorted(pdir.list_files())
+                           if n.endswith(".doc"))
+            _rot(pdir, victim2)
+            t0 = time.perf_counter()
+            healed = pbad.anti_entropy()
+            rep["anti_entropy_ms"] = (time.perf_counter() - t0) * 1e3
+            if victim2 not in healed["corrupt"] or not pbad.healthy:
+                raise AssertionError(f"[fleet] anti_entropy did not heal "
+                                     f"{victim2} on {pbad.replica_id}: "
+                                     f"{healed}")
+            serve_batches("anti-entropy", FLEET_HEALED_BATCHES)
+            here = dict(_build.LAUNCHES)
+            children = {r.replica_id: r.report() for r in remotes}
+        ledgers = [pub.report() for pub in pubs]
+        final = fleet.report()
+    finally:
+        for r in remotes:
+            r.close()
+        for ix in writers:
+            ix.close()
+    launches = dict(here)
+    for c in children.values():
+        for name, n in c["launches"].items():
+            launches[name] += n
+    shed = (after["served"].get(bad.replica_id, 0)
+            - before["served"].get(bad.replica_id, 0))
+    lat = np.asarray(lat)
+    rep.update(qps=32 * lat.size / lat.sum(),
+               batch_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+               batch_max_ms=float(lat.max()) * 1e3, syncs=syncs,
+               closed_loop=closed, fleet=final, ledgers=ledgers,
+               launches_here=here, deleted=deleted,
+               launches_children={rid: c["launches"]
+                                  for rid, c in children.items()},
+               repair=fix, anti_entropy=healed, quarantined=victim,
+               degraded_failovers=after["failovers"] - before["failovers"])
+    for rid, s in sorted(syncs.items()):
+        kind = "in-process" if rid.startswith("s0") else "process"
+        print(f"[fleet] on {card}: replica {rid} ({kind}, {dev}): "
+              + "; ".join(f"{label} sync {o['wall_s']:.2f}s wall, lag "
+                          f"{o['lag_s']:.3f}s, {o['files']} files, "
+                          f"{o['bytes']} bytes" for label, o in s.items()),
+              flush=True)
+    print(f"[fleet] on {card}: {FLEET_SHARDS} shards x {FLEET_REPLICAS} "
+          f"replicas, {rep['docs_per_shard']} + {rep['delta_docs_per_shard']}"
+          f" docs and {FLEET_DELETES} deletes a shard (writers "
+          f"{rep['writers_s']:.2f}s to the first commit, "
+          f"{rep['delta_commit_s']:.2f}s to the second); {rep['qps']:.1f} QPS"
+          f" closed loop over {lat.size} batches of 32 (k={k}), batch p50 "
+          f"{rep['batch_p50_ms']:.2f} ms max {rep['batch_max_ms']:.2f} ms; "
+          f"shards visited {closed['shards_visited']} skipped "
+          f"{closed['shards_skipped']}; batches served per replica (all "
+          f"phases) {final['served']}", flush=True)
+    print(f"[fleet] on {card}: failover: {victim} rotted on "
+          f"{bad.replica_id}, the sweep found it in {rep['sweep_ms']:.2f} "
+          f"ms, {rep['degraded_failovers']} failovers over "
+          f"{FLEET_DEGRADED_BATCHES} degraded batches, none served by it; "
+          f"repair re-fetched {fix['files']} file(s) ({fix['bytes']} bytes) "
+          f"in {rep['repair_ms']:.2f} ms; {victim2} rotted on "
+          f"{pbad.replica_id}, anti_entropy healed it in "
+          f"{rep['anti_entropy_ms']:.2f} ms; launches here {here}, in the "
+          f"replica processes {rep['launches_children']}, summed "
+          f"{launches}", flush=True)
+    fleet_gates(here, rep["launches_children"], shed,
+                rep["degraded_failovers"], final["degraded_served"])
+
+    # --- checks (not counted): every served batch against the union ---
+    t0 = time.perf_counter()
+    segs = []
+    for si in range(FLEET_SHARDS):
+        segs += open_latest(FSDirectory(str(tmp / f"s{si}" / "writer")),
+                            device=dev)[1]
+    oracle = ReaderCache(prune=False, device=dev).refresh(segs)
+    for bi, (label, q, v, i) in enumerate(served):
+        v_o, i_o = oracle.search_batched(q, k)
+        if not torch.equal(v.view(torch.int32), v_o.view(torch.int32)):
+            raise AssertionError(f"[fleet] batch {bi} ({label}): values != "
+                                 f"the union oracle")
+        if not bool(torch.isfinite(v).all()) or tuple(v.shape) != (32, k):
+            raise AssertionError(f"[fleet] batch {bi} ({label}): malformed")
+        check_ids_by_true_score(oracle, q, v, i, i_o)
+        check_no_deleted(i, deleted)
+    rep["checked_batches"] = len(served)
+    rep["oracle_docs"] = oracle.n_docs
+    print(f"[fleet] checks: all {len(served)} served batches (closed loop, "
+          f"degraded, after repair, after anti-entropy) == the union oracle "
+          f"over {oracle.n_docs} live docs (values bit for bit, ids by true "
+          f"score), no deleted doc served; the publishers' ledgers: "
+          f"{[l['replicas_current'] for l in ledgers]} replicas current, "
+          f"{sum(l['bytes_shipped_total'] for l in ledgers)} bytes shipped "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    del oracle, segs, fleet, shards, writers, served
     return rep, launches
 
 
@@ -1940,7 +2306,7 @@ def _work(name, args, kwargs, out):
     return nbytes, int(keep.sum()) * 128 * ops_per_lane, F32_OPS_PER_S
 
 
-def phase_timing(rec, launches, err, card: str) -> tuple:
+def phase_timing(rec, launches, err, card: str, remote=None) -> tuple:
     """Each kernel at every shape key S the main paths gave it, on the
     arguments it was given there: held against its plain version once
     more (exactly; flash attention within its tolerance), then timed: the
@@ -1952,7 +2318,10 @@ def phase_timing(rec, launches, err, card: str) -> tuple:
     yardstick on the same arguments (``_flash_yardstick``). A kernel's
     ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are means over
     the paths' launches (each S weighted by its launch count), so each
-    pair is held on the same inputs."""
+    pair is held on the same inputs. ``remote``: the launches made in
+    replica processes, counted in ``launches`` but not recorded (their
+    inputs stay in those processes), so the means are over this
+    process's launches."""
     from repro_torch.kernels.bm25_blockmax import ops as bops
     from repro_torch.kernels.bm25_blockmax import ref as bref
     from repro_torch.kernels.flash_attention import ops as fops
@@ -1987,9 +2356,11 @@ def phase_timing(rec, launches, err, card: str) -> tuple:
     line, per_shape = [], {}
     for name, (kern, plain) in calls.items():
         weights = rec.counts[name]
-        if sum(weights.values()) != launches[name]:
+        here = launches[name] - (remote or {}).get(name, 0)
+        if sum(weights.values()) != here:
             raise AssertionError(f"{name}: {sum(weights.values())} calls"
-                                 f" recorded, {launches[name]} launches")
+                                 f" recorded, {here} launches in this "
+                                 f"process")
         flash = name.startswith("flash_attention")
         rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
         if flash:
@@ -2378,11 +2749,16 @@ def main(argv=None) -> int:
     print(f"[envelope] ({envelope['envelope_s']:.1f}s)", flush=True)
     gc.collect()
     t0 = time.perf_counter()
-    steady, s_launches = phase_steady(args, dev, card, rec, report["qps"],
-                                      made)
-    del made
+    steady, s_launches = phase_steady(args, dev, card, rec, made)
     steady["steady_s"] = time.perf_counter() - t0
     print(f"[steady] ({steady['steady_s']:.1f}s)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fleet, f_launches = phase_fleet(args, dev, card, rec, made)
+    del made
+    fleet["fleet_s"] = time.perf_counter() - t0
+    print(f"[fleet] ({fleet['fleet_s']:.1f}s)", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     examples = phase_examples(card)
@@ -2390,10 +2766,12 @@ def main(argv=None) -> int:
     f32_launches = lm["checks"]["f32_launches"]
     launches = {n: launches[n] + d_launches[n] + lm_launches[n]
                 + f32_launches[n] + e_launches[n] + s_launches[n]
-                for n in launches}
+                + f_launches[n] for n in launches}
 
     t0 = time.perf_counter()
-    line, per_shape = phase_timing(rec, launches, err, card)
+    remote = {n: sum(c[n] for c in fleet["launches_children"].values())
+              for n in launches}
+    line, per_shape = phase_timing(rec, launches, err, card, remote)
     print(f"[timing] ({time.perf_counter() - t0:.1f}s)", flush=True)
 
     out_dir = ROOT / args.out
@@ -2406,9 +2784,10 @@ def main(argv=None) -> int:
         "simt_build": simt_build,
         "report": report, "checks": checks, "profile": prof,
         "durable": durable, "lm": lm, "envelope": envelope,
-        "steady": steady, "examples": examples,
+        "steady": steady, "fleet": fleet, "examples": examples,
         "kernels": line, "kernel_shapes": per_shape,
         "total_s": time.perf_counter() - t_start}, indent=1, default=str))
+    print(f"[total] total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -37,9 +37,12 @@ the scrubber and the merge pool.
 paper's media units) and, with ``target_dir``, adds what the source and
 target ``Directory`` stacks measured (bytes, and throttle device time).
 
-Not ported yet (each raises ``NotImplementedError`` naming
-``ROADMAP.md``): the replication publisher and the multi-device mesh
-step.
+With a ``publisher`` (``replication.CommitPublisher``) every durable
+commit (``commit()``, ``finalize()``) is announced to it, and
+``envelope_report()`` grows its ``fleet`` section.
+
+Not ported yet (raises ``NotImplementedError`` naming ``ROADMAP.md``):
+the multi-device mesh step.
 """
 from __future__ import annotations
 
@@ -73,9 +76,11 @@ from repro_torch.storage.wal import (WriteAheadLog, encode_wal_add,
 _ENVELOPE_PARAMS = env.EnvelopeParams()
 
 
-def _later_slice(what: str):
+def _later_slice(what: str, item: str = None) -> NotImplementedError:
+    """The error of a path still to port, naming its ``ROADMAP.md`` item."""
+    where = "ROADMAP.md, Queue 1" + (f", {item}" if item else "")
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md, Queue 1")
+        f"{what} is not ported to repro_torch yet; see {where}")
 
 
 @dataclass
@@ -157,7 +162,7 @@ class Indexer:
     # (``attach_serving`` registers a scheduler's ``swap_searcher``)
     on_refresh: list = None
     serving: object = None     # attached QueryScheduler (report source)
-    # later slices of the port
+    # a replication.CommitPublisher told of every durable commit
     publisher: object = None
     _postings_cache: object = None   # CachingDirectory when configured
     _next_doc: int = 0
@@ -168,9 +173,8 @@ class Indexer:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         if self.mesh is not None:
-            raise _later_slice("the multi-device mesh indexing step")
-        if self.publisher is not None:
-            raise _later_slice("the replication publisher")
+            raise _later_slice("the multi-device mesh indexing step",
+                              "item 3, the multi-device slice")
         self.merger = MergeDriver(
             fanout=self.cfg.merge_fanout,
             reorder_on_merge=getattr(self.cfg, "reorder_on_merge", False))
@@ -452,6 +456,8 @@ class Indexer:
         if self._wal is not None and covered >= 0:
             # only once the commit is durable are its records disposable
             self._wal.truncate_upto(covered)
+        if self.publisher is not None:
+            self.publisher.on_commit(gen)   # shippable to replicas now
         return gen
 
     def finalize(self) -> Segment:
@@ -464,9 +470,11 @@ class Indexer:
             covered = self._wal_covered
         final = self.merger.finalize()
         if self.store is not None:
-            self.store.commit(self.merger.live_segments())
+            gen = self.store.commit(self.merger.live_segments())
             if self._wal is not None and covered >= 0:
                 self._wal.truncate_upto(covered)
+            if self.publisher is not None:
+                self.publisher.on_commit(gen)
         return final
 
     def close(self):
@@ -677,6 +685,8 @@ class Indexer:
             })
             if s.cache is not None:
                 report["result_cache"] = s.cache.report()
+        if self.publisher is not None:
+            report["fleet"] = self.publisher.report()
         if self.store is not None:
             report.update(self._measured_report())
         return report

@@ -498,6 +498,13 @@ class IndexSearcher:
     # snapshot identity for result caching (0 = unkeyed): one per
     # distinct (seg_ids, quarantine) state a ReaderCache serves
     generation: int = 0
+    # collection statistics imposed from outside this snapshot (fleet
+    # serving): an object with ``n_docs`` / ``avgdl`` / ``df_terms`` /
+    # ``df_table`` over the UNION of all shards. Doc lengths and dfs are
+    # integers, so the union sums are exact in float64 however they were
+    # grouped, and per-doc scores under them equal a single searcher's
+    # over the union corpus bit for bit
+    collection_stats: object = None
     prune_stats: PruneStats = None
     _doc_norms: list = None
     _df_terms: np.ndarray = None   # (U,) sorted union of segment terms
@@ -517,6 +524,9 @@ class IndexSearcher:
                   else np.zeros(0, np.float64))
         self.n_docs = int(all_dl.size)
         self.avgdl = max(all_dl.mean(), 1.0) if all_dl.size else 1.0
+        if self.collection_stats is not None:
+            self.n_docs = int(self.collection_stats.n_docs)
+            self.avgdl = float(self.collection_stats.avgdl)
         # norms are indexed by LOCAL doc slot at scoring time
         self._doc_norms = [
             torch.from_numpy((self.k1 * (1.0 - self.b + self.b *
@@ -525,7 +535,12 @@ class IndexSearcher:
                               / self.avgdl)).astype(np.float32)
                              ).to(self.device)
             for r in self.readers]
-        if self.readers:
+        if self.collection_stats is not None:
+            self._df_terms = np.asarray(self.collection_stats.df_terms,
+                                        np.int64)
+            self._df_table = np.asarray(self.collection_stats.df_table,
+                                        np.int64)
+        elif self.readers:
             all_t = np.concatenate([r.terms_np for r in self.readers])
             all_df = np.concatenate([r.df_np for r in self.readers])
             self._df_terms, inv = np.unique(all_t, return_inverse=True)
@@ -538,6 +553,20 @@ class IndexSearcher:
     @property
     def n_segments(self) -> int:
         return len(self.readers)
+
+    def with_stats(self, stats) -> "IndexSearcher":
+        """This snapshot's readers served under externally imposed
+        collection statistics (``collection_stats``): the fleet wraps each
+        shard's searcher with the union stats. Its generation stays 0:
+        the imposed stats change scores, so the snapshot's key no longer
+        determines the results (the fleet keys caches on its own)."""
+        return IndexSearcher(readers=self.readers, k1=self.k1, b=self.b,
+                             prune=self.prune, bmw=self.bmw,
+                             midgrid=self.midgrid, device=self.device,
+                             degraded=self.degraded,
+                             missing_docs=self.missing_docs,
+                             quarantined=self.quarantined,
+                             collection_stats=stats)
 
     def global_idf(self, q_terms: np.ndarray) -> np.ndarray:
         """Collection-wide idf for ``q_terms`` (any shape); terms absent
@@ -555,6 +584,20 @@ class IndexSearcher:
     def _empty(self, B, k):
         return (torch.zeros((B, k), dtype=torch.float32),
                 torch.full((B, k), -1, dtype=torch.int64))
+
+    def query_max_ub(self, q2d: np.ndarray) -> np.ndarray:
+        """(B,) best POSSIBLE score this snapshot gives each query: the
+        max over live segments of the per-segment bound, under this
+        searcher's (possibly fleet-imposed) statistics. The fleet visits
+        shards in descending order of it and skips a shard once the
+        cross-shard theta exceeds it."""
+        q = np.asarray(q2d)
+        idf = self.global_idf(q)
+        ubs = [r.query_max_ub(q, idf, self.avgdl) for r in self.readers
+               if r.live_docs > 0 and r.terms_np.size > 0]
+        if not ubs:
+            return np.zeros(q.shape[0], np.float64)
+        return np.max(np.stack(ubs), axis=0)
 
     def _search_pruned(self, q2d: np.ndarray, k: int, theta0=None):
         """Pruned evaluation of a (B, Q) batch with cross-segment

@@ -5,16 +5,19 @@ instantiations), compact and the four midgrid walk instantiations are
 there without spills, and fails when one is missing or spills
 (``unpack_kernel`` must not stand in for ``pack_kernel``); the SIMT flash
 gate fails when a D = 256 instantiation (f32 or bf16) spills or is
-missing. The pure helpers of the ``[envelope]`` and ``[steady]`` phases
-(the arrival rate from ``[slice]``'s QPS, each gate's comparisons, the
-deleted-doc and result-cache checks, the live segments' file bytes) pass
-on sound inputs and fail on a planted fault each; launch counting and
-``ShapeRecorder`` count exactly from 8 threads at once."""
+missing. The pure helpers of the ``[envelope]``, ``[steady]`` and
+``[fleet]`` phases (the fixed arrival rate and the uncached probe beside
+it, each gate's comparisons, the deleted-doc and result-cache checks,
+the live segments' file bytes, the fleet's deletes) pass on sound inputs
+and fail on a planted fault each; launch counting and ``ShapeRecorder``
+count exactly from 8 threads at once; the ``[fleet]`` phase runs whole
+on the CPU with two replica processes."""
 import dataclasses
 import importlib.util
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -166,11 +169,118 @@ def test_shape_recorder_counts_exactly_from_8_threads(chip_smoke):
     assert pops.pack is rec._orig[0]
 
 
-def test_steady_rate_is_half_the_slice_qps(chip_smoke):
-    assert chip_smoke.steady_rate(137.5) == 68.75
-    for bad in (0.0, -3.0, float("nan"), float("inf"), None):
-        with pytest.raises(AssertionError, match="QPS"):
-            chip_smoke.steady_rate(bad)
+def test_steady_qps_is_the_jax_serve_steady_rate(chip_smoke):
+    """[steady] is offered the fixed rate of the JAX serve_steady bench
+    (benchmarks/run.py:1087), whatever [slice] or the probe measured."""
+    assert chip_smoke.STEADY_QPS == 75.0
+
+
+def test_probe_qps_fails_when_the_probe_served_no_query(chip_smoke):
+    """Pool queries with no terms leave every probe lane padding: no query
+    was served, so no QPS was measured, and the probe fails."""
+    idle = types.SimpleNamespace(search_batched=lambda q, k: None)
+    with pytest.raises(AssertionError, match="QPS"):
+        chip_smoke.probe_qps(idle, [np.zeros(0, np.int32)], 32, 4, 10)
+
+
+def test_probe_qps_runs_warm_searchers_probe_uncached(chip_smoke):
+    """The probe is ``warm_searcher``'s batches once more: at 32 slots,
+    120 queries in 21 batches (every pow2 occupancy of every pow2
+    bucket), timed on the host clock."""
+    from repro_torch.configs.lucene_envelope import SMOKE
+    from repro_torch.core.indexer import Indexer
+    from repro_torch.data.corpus import TINY, SyntheticCorpus
+    corpus = SyntheticCorpus(TINY, doc_buffer_len=SMOKE.doc_len)
+    ix = Indexer(cfg=SMOKE, device="cpu")
+    ix.index_batch(corpus.batch(0, 32))
+    searcher = ix.refresh()
+    vocab = np.unique(corpus.batch(0, 32))[1:]
+    pool = [vocab[i:i + 4].astype(np.int32) for i in range(0, 64, 4)]
+    out = chip_smoke.probe_qps(searcher, pool, 32, 4, 10)
+    assert out["queries"] == 120
+    assert out["s"] > 0 and out["qps"] == out["queries"] / out["s"]
+
+
+def test_fleet_deletes_pick_the_docs_holding_the_query_terms(chip_smoke):
+    tokens = np.zeros((12, 6), np.int32)
+    tokens[3, :3] = [7, 8, 9]       # 3 query terms
+    tokens[5, :2] = [7, 7]          # 2
+    tokens[1, 0] = 9                # 1
+    tokens[8, 0] = 8                # 1
+    q = np.array([[7, 8], [9, 11]], np.int32)
+    got = chip_smoke.fleet_deletes(tokens, q, 1000, 4)
+    assert got.tolist() == [1001, 1003, 1005, 1008]
+    assert got.dtype == np.int64
+
+
+def _fleet_inputs():
+    here = {"pack": 40, "unpack": 6, "bm25_blocks": 3,
+            "bm25_blocks_midgrid": 30}
+    children = {"s1r0": {"pack": 4, "unpack": 3, "bm25_blocks": 0,
+                         "bm25_blocks_midgrid": 12},
+                "s1r1": {"pack": 4, "unpack": 3, "bm25_blocks": 2,
+                         "bm25_blocks_midgrid": 0}}
+    return here, children, 0, 2, 0
+
+
+def test_fleet_gates_pass(chip_smoke):
+    chip_smoke.fleet_gates(*_fleet_inputs())
+
+
+@pytest.mark.parametrize("fault", [
+    "unpack here", "scoring here", "pack here", "unpack s1r0",
+    "scoring s1r1", "shed", "failovers", "degraded"])
+def test_fleet_gates_fail_on_a_planted_fault(chip_smoke, fault):
+    here, children, shed, failovers, degraded = _fleet_inputs()
+    if fault == "unpack here":
+        here["unpack"] = 0
+    elif fault == "scoring here":
+        here["bm25_blocks"] = here["bm25_blocks_midgrid"] = 0
+    elif fault == "pack here":
+        here["pack"] = 0
+    elif fault == "unpack s1r0":
+        children["s1r0"]["unpack"] = 0
+    elif fault == "scoring s1r1":
+        children["s1r1"]["bm25_blocks"] = 0
+    elif fault == "shed":
+        shed = 1
+    elif fault == "failovers":
+        failovers = 0
+    else:
+        degraded = 1
+    with pytest.raises(AssertionError, match=r"\[fleet\] gates"):
+        chip_smoke.fleet_gates(here, children, shed, failovers, degraded)
+
+
+def test_phase_fleet_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
+    """The whole [fleet] phase on the CPU at 64 docs a batch, with two
+    replica processes on the CPU: its syncs, serving, failover and heals
+    run, and every served batch passes the union-oracle checks. No kernel
+    launches on the CPU, so the launch gates get what the run counted
+    instead of being applied."""
+    from types import SimpleNamespace
+    gated = []
+    monkeypatch.setattr(chip_smoke, "fleet_gates",
+                        lambda *a: gated.append(a))
+    args = SimpleNamespace(batch_docs=64)
+    rep, launches = chip_smoke.phase_fleet(
+        args, torch.device("cpu"), "cpu", chip_smoke.ShapeRecorder())
+    assert len(gated) == 1
+    here, children, shed, failovers, degraded = gated[0]
+    assert set(children) == {"s1r0", "s1r1"}
+    assert shed == 0 and failovers >= 1 and degraded == 0
+    assert not any(launches.values())
+    assert rep["checked_batches"] == (
+        chip_smoke.FLEET_SERVE_BATCHES + chip_smoke.FLEET_DEGRADED_BATCHES
+        + 2 * chip_smoke.FLEET_HEALED_BATCHES)
+    assert sorted(rep["syncs"]) == ["s0r0", "s0r1", "s1r0", "s1r1"]
+    assert all(set(s) == {"first", "delta"} and s["first"]["files"] > 0
+               for s in rep["syncs"].values())
+    assert len(rep["deleted"]) == 2 * chip_smoke.FLEET_DELETES
+    assert rep["oracle_docs"] == 2 * (5 * 64 - chip_smoke.FLEET_DELETES)
+    assert rep["repair"]["files"] >= 1 and rep["anti_entropy"]["repaired"]
+    assert all(l["replicas_current"] == 2 for l in rep["ledgers"])
+    assert not list((chip_smoke.ROOT / "build").glob("chip_smoke_fleet_*"))
 
 
 PAIRS = (("nas", "ssd"), ("ssd", "ssd"))

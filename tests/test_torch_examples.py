@@ -1,5 +1,6 @@
 """The port's examples (``examples/torch_*.py``) with ``--device cpu``
-against the JAX package's (``examples/*.py``), and the port's serving CLI
+against the JAX package's (``examples/*.py``; the fleet demo's lags and
+rates taken out), and the port's serving CLI
 with the NRT refresh daemon (``--refresh-every``) against the JAX CLI's:
 printed lines equal once timings are taken out. Of
 ``examples/serve_retrieval.py`` only the lexical lines count (its dense
@@ -67,6 +68,30 @@ def test_example_matches_jax(name):
         want = [ln for ln in want if ln not in dense]
     assert got == want
     assert len(got) >= 3
+
+
+def _fleet_untimed(text: str) -> list:
+    """The fleet demo's lines without its replication lags, rates and
+    heal time."""
+    out = []
+    for line in text.splitlines():
+        line = re.sub(r"=\d+ms", "=", line)
+        line = re.sub(r"\d+ qps", "qps", line)
+        line = re.sub(r"in \d+ms", "in", line)
+        out.append(line)
+    return out
+
+
+def test_serve_fleet_example_matches_jax():
+    """``examples/torch_serve_fleet.py --device cpu`` (4 replica processes
+    on the CPU) prints what ``examples/serve_fleet.py`` prints: the
+    bytes each replica pulled, every batch exact against the union
+    oracle, the ledger's bytes, the rotted file and the repair count."""
+    want = _fleet_untimed(_run(EXAMPLES / "serve_fleet.py"))
+    got = _fleet_untimed(_run(EXAMPLES / "torch_serve_fleet.py",
+                              ["--device", "cpu"]))
+    assert got == want
+    assert got[-1] == "fleet serving demo OK" and len(got) == 11
 
 
 def test_example_needs_cuda_or_explicit_cpu():

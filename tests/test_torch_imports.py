@@ -3,7 +3,9 @@
 ``repro`` (checked in a fresh interpreter and by a source scan), and no
 kernel call sits under a ``try`` that could fall back to the plain
 version. The one ``try`` on the refresh daemon's path only hands the
-error it died of to ``close()``, which raises it."""
+error it died of to ``close()``, which raises it; so do the replica
+syncer's poller (to its ``close()``) and the replica process's command
+loop (to the parent, whose ``RemoteReplica._call`` raises it)."""
 import ast
 import json
 import re
@@ -18,6 +20,10 @@ EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
 SLICE8 = {"repro_torch.core.envelope", "repro_torch.core.tokenize",
           "repro_torch.io", "repro_torch.io.reader",
           "repro_torch.serving.steady", "repro_torch.core.indexer"}
+SLICE9 = {"repro_torch.replication", "repro_torch.replication.fleet",
+          "repro_torch.replication.publisher",
+          "repro_torch.replication.server",
+          "repro_torch.replication.syncer", "repro_torch.core.searcher"}
 # calls that reach a hand-written kernel (the ops and what wraps them)
 KERNEL_CALLS = {"pack", "unpack", "bm25_blocks", "bm25_blocks_partials",
                 "bm25_blocks_midgrid", "lib", "build_all", "pp_pack",
@@ -32,6 +38,8 @@ KERNEL_CALLS = {"pack", "unpack", "bm25_blocks", "bm25_blocks_partials",
                 "encode_segment", "decode_segment", "write_segment",
                 "read_segment", "open_latest", "open_latest_degraded",
                 "open_searcher", "_open_latest_full", "commit",
+                # a replica's decode of shipped segments
+                "_install",
                 # the flash-attention op, its launcher, its C entry points,
                 # the model's attention call and the LM entry points above
                 "flash_attention", "launch", "flash_attention_fwd",
@@ -51,9 +59,10 @@ def _modules(examples: bool = False):
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
     names = [m for _, m in _modules()]
-    assert SLICE8 <= set(names)
+    assert SLICE8 | SLICE9 <= set(names)
     assert {p.stem for p in EXAMPLES} == {
-        "torch_quickstart", "torch_index_corpus", "torch_serve_retrieval"}
+        "torch_quickstart", "torch_index_corpus", "torch_serve_retrieval",
+        "torch_serve_fleet"}
     code = (
         "import importlib, importlib.util, json, sys\n"
         f"for m in {names!r}:\n"
@@ -136,14 +145,19 @@ def _reaches_kernel(fn, methods, seen=()):
 def test_daemon_and_merge_paths_catch_no_kernel_failure():
     """Followed through the functions each calls: no ``try`` with a
     handler on the refresh daemon's, the merge threads' or serving's
-    path wraps a kernel call, except two that hand what their thread died
-    of to the caller, who raises it: the daemon's (stored in
-    ``_refresh_error``; ``close()`` raises it) and the open-loop driver's
-    churn thread (``churn_err``; ``run_open_loop`` raises it)."""
+    path, nor on a replica's (sync, decode, serving), wraps a kernel
+    call, except four that hand what their thread or process died of to
+    the caller, who raises it: the daemon's (stored in ``_refresh_error``;
+    ``close()`` raises it), the open-loop runner's churn thread
+    (``churn_err``; ``run_open_loop`` raises it), the replica syncer's
+    poller (``_error``; ``close()`` raises it) and the replica process's
+    command loop (an ``"err"`` reply; ``RemoteReplica._call`` raises
+    it)."""
     found = {}
     trees = {rel: ast.parse((PKG / rel).read_text())
              for rel in ("core/indexer.py", "core/merge.py",
-                         "serving/steady.py", "serving/query_scheduler.py")}
+                         "serving/steady.py", "serving/query_scheduler.py",
+                         "replication/syncer.py", "replication/server.py")}
     for rel, tree in trees.items():
         methods = _methods(tree)
         for fn in methods.values():
@@ -155,7 +169,12 @@ def test_daemon_and_merge_paths_catch_no_kernel_failure():
     handed = {("core/indexer.py", "_refresh_daemon"):
               ("self._refresh_error = e", "close", "err"),
               ("serving/steady.py", "_churn_loop"):
-              ("churn_err.append(e)", "run_open_loop", "churn_err[0]")}
+              ("churn_err.append(e)", "run_open_loop", "churn_err[0]"),
+              ("replication/syncer.py", "_follow"):
+              ("self._error = e", "close", "err"),
+              ("replication/server.py", "replica_main"):
+              ("reply = ('err', f'{type(e).__name__}: {e}')", "_call",
+               "RemoteReplicaError(f'{self.replica_id}: {cmd}: {out}')")}
     assert set(found) == set(handed)
     for (rel, _), node in found.items():
         store, raiser, raised = handed[(rel, _)]

@@ -8,6 +8,7 @@ port's entry points."""
 import contextlib
 import io
 import re
+import types
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from repro_torch.core.indexer import Indexer
 from repro_torch.core.searcher import IndexSearcher, ReaderCache
 from repro_torch.launch import serve as tserve
 from repro_torch.serving.query_scheduler import QueryScheduler
+from repro_torch.storage import RAMDirectory
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -84,13 +86,21 @@ def test_entry_points_need_cuda_or_explicit_cpu():
 
 
 def test_later_slices_raise_not_implemented():
-    """The mesh and the replication publisher are still to port and say
-    where they stand; the refresh daemon, background merges and
-    ``envelope_report`` are ported: they construct, run and report the
-    JAX package's keys."""
-    for kw in ({"mesh": object()}, {"publisher": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Indexer(cfg=SMOKE, device="cpu", **kw)
+    """The mesh is still to port and says where it stands; the
+    replication publisher (a plain object here: the indexer only calls
+    ``on_commit`` and ``report``), the refresh daemon, background merges
+    and ``envelope_report`` are ported: they construct, run and report
+    the JAX package's keys."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Indexer(cfg=SMOKE, device="cpu", mesh=object())
+    pub = types.SimpleNamespace(gens=[], report=lambda: {"replicas": 0})
+    pub.on_commit = pub.gens.append
+    with_pub = Indexer(cfg=SMOKE, device="cpu", publisher=pub,
+                       target_dir=RAMDirectory())
+    with_pub.index_batch(np.ones((4, 64), np.int32))
+    assert pub.gens == [with_pub.commit()]
+    assert with_pub.envelope_report()["fleet"] == {"replicas": 0}
+    with_pub.close()
     from repro.configs.registry import get_arch
     from repro.core.indexer import DistributedIndexer
     ix = Indexer(cfg=SMOKE, device="cpu", refresh_every=0.05,
