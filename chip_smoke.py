@@ -66,7 +66,9 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               the card, in the tombstone-free and the tombstoned snapshot,
               every pruned id carrying its true score (ids may differ only
               among equal scores); the card's top-k equal the port's CPU
-              path on a 2^14-doc index built from the same batch;
+              path on a 2^14-doc index built from the same batch; beside
+              it (neither is timed as a metric), ``examples/torch_*.py``
+              on the card, each must exit 0;
 8. profile  — where serving time goes: device busy share of 4 served
               batches under ``torch.profiler`` (device-side events only),
               top kernels, and the host functions with the most own time
@@ -96,10 +98,10 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               refresh daemon (1 s) and 2 merge threads, a cached
               ``QueryScheduler`` attached; 4 seed batches (the warm probe
               timed once more, uncached, and its QPS printed), then
-              Poisson arrivals at a fixed 75 QPS while 36 batches are
-              ingested and 8 served docs deleted every 4th tick, a tick
-              that flushed or deleted ending when the daemon has
-              swapped in a new generation. Gates:
+              Poisson arrivals at a fixed 75 QPS for 90 s while 36
+              batches are ingested and 8 served docs deleted every 4th
+              tick, a tick that flushed or deleted ending when the daemon
+              has swapped in a new generation. Gates:
               every arrival completed, none shed, >= 10 daemon refreshes
               and served generations, >= 1 merge on 2 threads, and after
               ``close()`` + ``refresh()`` pruned == exhaustive, true
@@ -107,7 +109,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               entries == uncached searches. Latency is reported for all
               arrivals and for the cache misses alone;
 12. fleet   — the replicated fleet (``repro_torch.replication``): 2 range
-              shards x 2 replicas at CONFIG width, 2^16 docs a shard
+              shards x 2 replicas at CONFIG width, 2^15 docs a shard
               committed, then 2^14 more and 8 deletes a shard and a second
               commit; shard 0's replicas are ``ReplicaSyncer``s in this
               process, shard 1's ``RemoteReplica`` processes, each with its
@@ -121,7 +123,23 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               bit for bit, ids by true score), no deleted doc served;
               unpack and bm25_blocks or midgrid launched in this process
               and in each replica process;
-13. examples — ``examples/torch_*.py`` on the card, each must exit 0;
+13. mesh    — the multi-device indexing step (``make_index_step``: invert,
+              all-to-all term shuffle over ``model``, pack) at full CONFIG
+              width, 4096 docs x 1024 tokens a rank of CW09B_SMALL's law:
+              a world of 4 processes on this card over gloo (a (2, 2)
+              ``("data", "model")`` mesh, ``file://`` rendezvous, the
+              exchange staged through host memory, a bounded wait),
+              while this process runs the plain loopback of the same 4
+              blocks on the CPU; then world 1 over NCCL in this process
+              (a (1, 1) mesh, block 0), held against the plain path on
+              the CPU. Each rank's step, its stages and the exchange's
+              share, raw and packed2 shuffle bytes, dropped entries.
+              Gates: every rank's outputs (run, stats, packed words,
+              widths, packed_bytes) == the plain path bit for bit (SHA-256
+              digests); packed2 == raw; sent == recv + dropped over the
+              world; every term on model index m is m mod 2; pack launched
+              in each rank's counted step; ``merge_topk_sharded`` over a
+              (4,) and a (1,) ``shard`` mesh == the host merge;
 14. timing  — each kernel on the very inputs the paths gave it, at every
               shape it was launched with (blocks; for flash attention
               batch, length and window): held against its plain version
@@ -146,11 +164,12 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 In every counted run (the LM path, the f32 LM prefills, the slice, the
 durable path's indexing + recovery + serving and its WAL run, each
 envelope pair's indexing + recovery + serving, steady's whole run, and
-the fleet's writers, syncs, serving and heals) the launch counts are
-zeroed just before and read just after (after every thread the run
-started has been joined; a replica process counts its own from its
-start and reports them), never around a comparison, and every kernel of
-the path must have launched.
+the fleet's writers, syncs, serving and heals, and [mesh]'s first step
+in each rank and in this process) the launch counts are zeroed just
+before and read just after (after every thread the run started has been
+joined; a replica or mesh process counts its own and reports them),
+never around a comparison, and every kernel of the path must have
+launched.
 
 The durable path runs at ``--docs`` (2^20 by default) and may not be cut;
 the in-memory slice runs at ``--docs // SLICE_CUT``: at 2^20 docs each,
@@ -160,9 +179,16 @@ limit, and only the earlier path's depth may be cut; with the LM phases
 and the slice at 2^19 the script took 916.8 s, so the slice ran at
 2^18. With [envelope], [steady] and [examples] added the script's own
 total was 986.2 s with the slice at 2^18 and 896.9-897.4 s at 2^17 (the
-same card), so the slice runs at 2^17. [steady]'s arrivals were once paced at
+same card), so the slice ran at 2^17. [steady]'s arrivals were once paced at
 half the slice's QPS and followed its depth (201.75 offered at 2^18,
-603.43 at 2^17); they now come at a fixed 75 QPS.
+603.43 at 2^17); they now come at a fixed 75 QPS. With [fleet] the
+script took 1027.7-1125.2 s, and with [mesh] added 1155.2-1212.9 s on
+slower hosts before some of the cuts below and 1016.4 s on a fast host
+after all of them. To make room: the slice runs at 2^16 (``SLICE_CUT``
+16), [fleet]'s shards hold 2^15 docs, not 2^16, and [examples] runs
+beside [checks]. [steady] cannot give time and keep its gates: its one
+merge needs all 40 batches (4 seed + 24 ticks ran none), and 16 seed +
+24 ticks took as long as 4 + 36.
 
 Prints the script's ``total_s``, the kernels as one JSON line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Details
@@ -178,6 +204,7 @@ import gc
 import json
 import os
 import pstats
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -186,7 +213,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12     # dense tensor-core peak
-SLICE_CUT = 8               # the in-memory slice runs at --docs // SLICE_CUT
+SLICE_CUT = 16              # the in-memory slice runs at --docs // SLICE_CUT
 
 
 def _fail(msg: str) -> int:
@@ -1326,7 +1353,10 @@ def phase_durable(args, dev, card, rec, del_ids, upd_ids,
 ENVELOPE_PAIRS = (("nas", "ssd"), ("ssd", "ssd"))   # isolated, shared
 ENVELOPE_BATCHES = 4                # of --batch-docs: 2^16 docs a pair
 STEADY_SEED_BATCHES = 4             # indexed and refreshed before serving
-STEADY_TICKS = 36                   # churn ticks, one batch each
+# churn ticks, one batch each. Not cut: the one merge the gates need takes
+# the 10 flushes of all 40 batches (a flush every 4 batches at CONFIG's
+# 256 MB budget), and ticks moved to the seed saved no time
+STEADY_TICKS = 36
 STEADY_DELETE_EVERY = 4             # every 4th tick deletes ...
 STEADY_DELETES = 8                  # ... this many served docs
 STEADY_MIN_REFRESHES = 10           # daemon refreshes, and generations
@@ -1350,7 +1380,7 @@ EXAMPLES = ("torch_quickstart.py", "torch_index_corpus.py",
             "torch_serve_retrieval.py", "torch_serve_fleet.py")
 FLEET_SHARDS = 2                    # range shards, each with ...
 FLEET_REPLICAS = 2                  # ... this many replicas
-FLEET_BATCHES = 4                   # of --batch-docs a shard (2^16 docs) ...
+FLEET_BATCHES = 2                   # of --batch-docs a shard (2^15 docs) ...
 FLEET_DELETES = 8                   # ... then one more batch and 8 deletes
 FLEET_RANGE = 1 << 24               # shard si owns ids [si, si + 1) * this
 FLEET_SERVE_BATCHES = 16            # closed-loop batches of 32 queries
@@ -2212,25 +2242,361 @@ def _fleet_run(dev, card, rec, batches, qbatches, tmp, rep, k):
     return rep, launches
 
 
-def phase_examples(card) -> dict:
-    """``examples/torch_*.py`` on the card, as subprocesses started
-    together: each must exit 0."""
+MESH_WORLD = 4                      # [mesh]'s ranks, all on this card, as
+MESH_SHAPE = {"data": 2, "model": 2}   # the JAX debug mesh lays them out
+MESH_STEPS = 5                      # timed steps a payload, after the first
+MESH_TIMEOUT_S = 300.0              # the longest the world may take
+MESH_MERGE = (4, 32, 10)            # (shards, queries, k) of the merge check
+MESH_FIELDS = ("packed_docs", "bw_docs", "packed_pos", "bw_pos")
+
+
+def mesh_digests(out: dict) -> dict:
+    """Field -> SHA-256 of its dtype, shape and bytes, for every output of
+    one rank's indexing step (``make_index_step``): two ranks' outputs
+    are bit-equal when their digests are."""
+    import hashlib
+    tensors = {f"run.{f}": getattr(out["run"], f) for f in out["run"]._fields}
+    tensors.update({f"stats.{f}": t
+                    for f, t in out["stats"]._asdict().items()})
+    tensors.update({f: out[f] for f in MESH_FIELDS})
+    dig = {}
+    for name, t in tensors.items():
+        a = t.detach().cpu().contiguous().numpy()
+        h = hashlib.sha256(f"{a.dtype} {a.shape}".encode())
+        h.update(a.tobytes())
+        dig[name] = h.hexdigest()
+    dig["packed_bytes"] = repr(float(out["packed_bytes"]))
+    return dig
+
+
+def mesh_merge_inputs(rng):
+    """Per-shard (S, B, k) partials as ``FleetSearcher`` passes them, with
+    ties across shards (values on a coarse grid) and -1 ids in the tail."""
+    import numpy as np
+    S, B, k = MESH_MERGE
+    vals = np.sort(rng.integers(0, 40, (S, B, k)).astype(np.float32) / 4,
+                   axis=2)[:, :, ::-1].copy()
+    ids = rng.permutation(S * B * k).reshape(S, B, k).astype(np.int64)
+    ids[:, :, -2:] = -1
+    vals[:, :, -2:] = 0
+    return vals, ids, k
+
+
+def mesh_gates(ranks: list, want: list, world1: dict, want1: dict) -> None:
+    """The [mesh] gates on the world's ranks (each rank's report from
+    ``_mesh_rank``) against the plain loopback's digests ``want``, by
+    rank, and on world 1's report against the plain path's ``want1``:
+    every output bit-equal; packed2 == raw; every term on model index m
+    is m mod the model axis; pack launched in each counted step; the
+    shard-mesh merge == the host merge; sent == recv + dropped over the
+    world."""
+    bad = []
+    runs = [(f"rank {r}", rep, ref) for r, (rep, ref)
+            in enumerate(zip(ranks, want))] + [("world 1", world1, want1)]
+    for who, rep, ref in runs:
+        diff = sorted(f for f in ref if rep["digests"].get(f) != ref[f])
+        if diff:
+            bad.append(f"{who}: {diff} differ from the plain path")
+        if not rep.get("packed2_eq_raw", True):
+            bad.append(f"{who}: packed2 != raw")
+        if not rep["owned"]:
+            bad.append(f"{who}: a term off its owner")
+        if rep["launches"].get("pack", 0) <= 0:
+            bad.append(f"{who}: pack never launched")
+        if not rep["merge_eq_host"]:
+            bad.append(f"{who}: the mesh merge != the host merge")
+    tot = {f: sum(r["stats"][f] for r in ranks)
+           for f in ("sent", "recv", "dropped")}
+    if tot["sent"] != tot["recv"] + tot["dropped"]:
+        bad.append(f"sent {tot['sent']} != recv {tot['recv']} + dropped "
+                   f"{tot['dropped']}")
+    if bad:
+        raise AssertionError("[mesh] gates: " + "; ".join(bad))
+
+
+def _timed_steps(step, mesh, tok, barrier) -> dict:
+    """MESH_STEPS runs of ``step`` on ``tok``: the three stages timed
+    apart (send, the all-to-all of every buffer, receive and pack), then
+    the whole step; each after a barrier across the world and a
+    synchronize. Medians in ms, and the bytes the all-to-all moved."""
+    t = {"send_ms": [], "exchange_ms": [], "receive_ms": [], "step_ms": []}
+    dev = tok.device
+    for _ in range(MESH_STEPS):
+        barrier()
+        _sync(dev)
+        t0 = time.perf_counter()
+        sent = step.send(tok)
+        _sync(dev)
+        t1 = time.perf_counter()
+        received = tuple(mesh.all_to_all(b, "model") for b in sent.buffers)
+        _sync(dev)
+        t2 = time.perf_counter()
+        step.receive(sent, received)
+        _sync(dev)
+        t3 = time.perf_counter()
+        barrier()
+        _sync(dev)
+        t4 = time.perf_counter()
+        step(tok)
+        _sync(dev)
+        t5 = time.perf_counter()
+        for key, dt in (("send_ms", t1 - t0), ("exchange_ms", t2 - t1),
+                        ("receive_ms", t3 - t2), ("step_ms", t5 - t4)):
+            t[key].append(dt * 1e3)
+    out = {key: statistics.median(v) for key, v in t.items()}
+    out["shuffle_bytes"] = sum(b.numel() * b.element_size()
+                               for b in sent.buffers)
+    out["staged"] = mesh.host_staged("model", sent.buffers[0])
+    return out
+
+
+def _step_checks(out, mesh) -> dict:
+    """What one rank can check of its own step's outputs: its terms'
+    owner (the model index), its stats, its term count and bytes."""
+    run = out["run"]
+    terms = run.terms_unique[:int(run.n_terms)]
+    n = mesh.axis_size("model")
+    return {"owned": bool((terms % n == mesh.axis_index("model")).all()),
+            "n_terms": int(run.n_terms),
+            "stats": {f: int(v) for f, v in out["stats"]._asdict().items()},
+            "packed_bytes": float(out["packed_bytes"])}
+
+
+def _same_outputs(a: dict, b: dict) -> bool:
+    import torch
+    return all(torch.equal(getattr(a["run"], f), getattr(b["run"], f))
+               for f in a["run"]._fields) and all(
+        torch.equal(a[f], b[f]) for f in MESH_FIELDS)
+
+
+def _mesh_merge_check(mesh, dev) -> bool:
+    """``merge_topk_sharded`` over ``mesh``'s ``shard`` axis == the host
+    merge, values bit for bit and ids, on ``mesh_merge_inputs``."""
+    import numpy as np
+    import torch
+    from repro_torch.replication import merge_topk_sharded
+    vals, ids, k = mesh_merge_inputs(np.random.default_rng(3))
+    mv, mi = merge_topk_sharded(vals, ids, k, mesh=mesh)
+    hv, hi = merge_topk_sharded(vals, ids, k)
+    return bool(torch.equal(mv.view(torch.int32), hv.view(torch.int32))
+                and torch.equal(mi, hi))
+
+
+def _mesh_rank(rank: int, world: int, tmp: str, cfg, device: str) -> dict:
+    """One rank of [mesh]'s world (``distributed.spawn_world``, gloo, on
+    ``device``: on ``cuda:0`` it loads the kernels this script built):
+    runs the counted packed2 step on its block, raw on the same block,
+    checks, times, and merges over a (4,) ``shard`` mesh. Returns numpy
+    and plain Python."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.indexer import make_index_step
+    from repro_torch.distributed import make_debug_mesh, make_mesh
+    from repro_torch.kernels import _build
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        _build.lib("postings_pack")
+    mesh = make_debug_mesh(MESH_SHAPE["data"], MESH_SHAPE["model"])
+    shard = make_mesh({"shard": world})
+    tok = torch.from_numpy(np.load(Path(tmp) / f"block{rank}.npy")).to(dev)
+    steps = {p: make_index_step(dataclasses.replace(cfg, shuffle_payload=p),
+                                mesh, cfg.doc_len, device=dev)
+             for p in ("packed2", "raw")}
+    dist.barrier()
+    _build.reset_launches()
+    out = steps["packed2"](tok)
+    _sync(dev)
+    rep = {"coords": mesh.coords, "launches": dict(_build.LAUNCHES)}
+    raw = steps["raw"](tok)
+    rep.update(_step_checks(out, mesh), digests=mesh_digests(out),
+               packed2_eq_raw=_same_outputs(out, raw))
+    del out, raw
+    rep["timing"] = {p: _timed_steps(s, mesh, tok, dist.barrier)
+                     for p, s in steps.items()}
+    rep["merge_eq_host"] = _mesh_merge_check(shard, dev)
+    return rep
+
+
+def phase_mesh(dev, card, rec) -> tuple:
+    """The multi-device indexing step at full CONFIG width (phase 13 of
+    the module docstring; the world's ranks get CONFIG from this
+    process). On a CPU ``dev`` (a rehearsal) world 1 runs over gloo.
+    Returns (report, launches of this process and of the world's
+    processes, summed)."""
+    import dataclasses
+    import shutil
+    import threading
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.lucene_envelope import CONFIG
+    from repro_torch.core.indexer import index_step_loopback, make_index_step
+    from repro_torch.data.corpus import CW09B_SMALL, SyntheticCorpus
+    from repro_torch.distributed import (init_world, make_debug_mesh,
+                                         make_mesh, spawn_world)
+    from repro_torch.kernels import _build
+
+    cfg = CONFIG
+    D, L = cfg.docs_per_shard, cfg.doc_len
+    corpus = SyntheticCorpus(dataclasses.replace(
+        CW09B_SMALL, n_docs=MESH_WORLD * D), doc_buffer_len=L)
+    blocks = [corpus.batch(r, D) for r in range(MESH_WORLD)]
+    tmp = ROOT / "build" / f"chip_smoke_mesh_{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    for r, b in enumerate(blocks):
+        np.save(tmp / f"block{r}.npy", b)
+    # one host, no network: gloo and NCCL talk over the loopback device
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    rep = {"tokens_per_rank": D * L, "world": MESH_WORLD,
+           "shape": MESH_SHAPE}
+    try:
+        # the world of 4 on this card, while this process runs the plain
+        # loopback over the same blocks on the CPU
+        box = {}
+
+        def run_world():
+            try:
+                box["ranks"] = spawn_world(
+                    _mesh_rank, MESH_WORLD, tmp / "world", backend="gloo",
+                    args=(str(tmp), cfg, str(dev)),
+                    timeout_s=MESH_TIMEOUT_S)
+            except Exception as e:    # raised below, in this thread
+                box["error"] = e
+        t0 = time.perf_counter()
+        th = threading.Thread(target=run_world, name="mesh-world")
+        th.start()
+        t1 = time.perf_counter()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, min(threads, 4)))   # cores for the world
+        try:
+            want = [mesh_digests(o) for o in index_step_loopback(
+                cfg, MESH_SHAPE, blocks, L, device="cpu")]
+        finally:
+            torch.set_num_threads(threads)
+        rep["loopback_s"] = time.perf_counter() - t1
+        th.join(MESH_TIMEOUT_S + 60)
+        if th.is_alive() or "ranks" not in box:
+            raise AssertionError(f"[mesh] the world of {MESH_WORLD} failed: "
+                                 f"{box.get('error', 'no result')}")
+        ranks = box["ranks"]
+        rep["world_s"] = time.perf_counter() - t0
+        # world 1 in this process (over NCCL on the card): the counted run
+        # of this process, on block 0, held against the plain path
+        t0 = time.perf_counter()
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        init_world(0, 1, tmp / "world1_rendezvous", backend=backend)
+        try:
+            mesh = make_debug_mesh(1, 1)
+            shard = make_mesh({"shard": 1})
+            step = make_index_step(cfg, mesh, L, device=dev)
+            tok = torch.from_numpy(blocks[0]).to(dev)
+            with rec:
+                _build.reset_launches()
+                out = step(tok)
+                _sync(dev)
+                here = dict(_build.LAUNCHES)
+            one = _timed_steps(step, mesh, tok, dist.barrier)
+            world1 = dict(_step_checks(out, mesh), digests=mesh_digests(out),
+                          launches=here,
+                          merge_eq_host=_mesh_merge_check(shard, dev))
+        finally:
+            dist.destroy_process_group()
+        rep["world1_s"] = time.perf_counter() - t0
+        del out
+        t0 = time.perf_counter()
+        want1 = mesh_digests(index_step_loopback(
+            cfg, {"data": 1, "model": 1}, blocks[:1], L, device="cpu")[0])
+        rep["plain1_s"] = time.perf_counter() - t0
+        mesh_gates(ranks, want, world1, want1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    children = {f"rank{r}": rk["launches"] for r, rk in enumerate(ranks)}
+    rep.update(ranks=[{k: v for k, v in rk.items() if k != "digests"}
+                      for rk in ranks],
+               world1={"timing": one, "backend": backend,
+                       **{k: v for k, v in world1.items()
+                          if k != "digests"}},
+               launches_here=here,
+               launches_children=children)
+    for r, rk in enumerate(ranks):
+        t = rk["timing"]
+        fewer = 1 - t["packed2"]["shuffle_bytes"] / t["raw"]["shuffle_bytes"]
+        print(f"[mesh] on {card}: world {MESH_WORLD} rank {r} "
+              f"{rk['coords']} (gloo on {dev}, the exchange staged through "
+              f"host memory: {t['packed2']['staged']}): step "
+              f"{t['packed2']['step_ms']:.3f} ms packed2 / "
+              f"{t['raw']['step_ms']:.3f} ms raw (median of {MESH_STEPS}, "
+              f"synchronized); stages packed2 send "
+              f"{t['packed2']['send_ms']:.3f} + exchange "
+              f"{t['packed2']['exchange_ms']:.3f} + receive and pack "
+              f"{t['packed2']['receive_ms']:.3f} ms, the exchange "
+              f"{t['packed2']['exchange_ms'] / t['packed2']['step_ms']:.3f} "
+              f"of the step; shuffle bytes a step raw "
+              f"{t['raw']['shuffle_bytes']} packed2 "
+              f"{t['packed2']['shuffle_bytes']} ({fewer:.3f} fewer); "
+              f"sent {rk['stats']['sent']} recv {rk['stats']['recv']} "
+              f"dropped {rk['stats']['dropped']}; {rk['n_terms']} terms; "
+              f"packed_bytes {rk['packed_bytes']:.0f}; pack launches "
+              f"{rk['launches']['pack']}", flush=True)
+    tot = {f: sum(rk["stats"][f] for rk in ranks)
+           for f in ("sent", "recv", "dropped")}
+    print(f"[mesh] on {card}: world {MESH_WORLD} {MESH_SHAPE} at {cfg.name}"
+          f" width ({D} docs x {L} tokens a rank, CW09B_SMALL's law): every "
+          f"rank's outputs == the plain loopback on the CPU bit for bit "
+          f"(loopback {rep['loopback_s']:.1f}s beside the world's "
+          f"{rep['world_s']:.1f}s); packed2 == raw; sent {tot['sent']} == "
+          f"recv {tot['recv']} + dropped {tot['dropped']}; every term on "
+          f"its owner; merge_topk_sharded over a ({MESH_WORLD},) shard mesh"
+          f" == the host merge on every rank", flush=True)
+    print(f"[mesh] on {card}: world 1 (1, 1) over {backend} in this "
+          f"process: "
+          f"step {one['step_ms']:.3f} ms packed2 (send {one['send_ms']:.3f}"
+          f" + exchange {one['exchange_ms']:.3f} + receive and pack "
+          f"{one['receive_ms']:.3f} ms; staged {one['staged']}), sent "
+          f"{world1['stats']['sent']} dropped {world1['stats']['dropped']}"
+          f"; == the plain path on the CPU bit for bit ({rep['plain1_s']:.1f}"
+          f"s); merge over a (1,) shard mesh == host; launches {here}",
+          flush=True)
+    launches = dict(here)
+    for c in children.values():
+        for name, n in c.items():
+            launches[name] += n
+    return rep, launches
+
+
+def start_examples() -> tuple:
+    """Start ``examples/torch_*.py`` on the card, as subprocesses started
+    together; ``finish_examples`` waits for them."""
     import subprocess
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(
+    return time.perf_counter(), {name: subprocess.Popen(
         [sys.executable, str(ROOT / "examples" / name)], cwd=str(ROOT),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for name in EXAMPLES}
+
+
+def finish_examples(started: tuple, card) -> dict:
+    """Wait for the examples ``start_examples`` started (300 s each at
+    most; one that overruns is killed, as are the rest when one fails to
+    finish): each must exit 0."""
+    t0, procs = started
     out = {}
-    for name, proc in procs.items():
-        try:
+    try:
+        for name, proc in procs.items():
             log, _ = proc.communicate(timeout=300)
-        finally:
+            out[name] = {"rc": proc.returncode,
+                         "tail": log.splitlines()[-3:]}
+    finally:
+        for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
-        out[name] = {"rc": proc.returncode, "tail": log.splitlines()[-3:]}
     secs = time.perf_counter() - t0
     bad = {n: o for n, o in out.items() if o["rc"] != 0}
     if bad:
@@ -2238,7 +2604,7 @@ def phase_examples(card) -> dict:
     for name, o in out.items():
         print(f"[examples] on {card}: {name} exit 0: {o['tail'][-1]}",
               flush=True)
-    print(f"[examples] ({secs:.1f}s)", flush=True)
+    print(f"[examples] ({secs:.1f}s, beside [checks])", flush=True)
     return {"examples": out, "examples_s": secs}
 
 
@@ -2713,7 +3079,12 @@ def main(argv=None) -> int:
     from repro_torch.configs.lucene_envelope import CONFIG
     batch0 = SyntheticCorpus(CW09B_SMALL, doc_buffer_len=CONFIG.doc_len
                              ).batch(0, 1 << 14)
-    checks = phase_checks(phases, dev, batch0)
+    # [examples] runs beside [checks]: neither is timed as a metric
+    started = start_examples()
+    try:
+        checks = phase_checks(phases, dev, batch0)
+    finally:
+        examples = finish_examples(started, card)
     print(f"[checks] {checks} ({time.perf_counter() - t0:.1f}s)", flush=True)
 
     t0 = time.perf_counter()
@@ -2761,16 +3132,22 @@ def main(argv=None) -> int:
     print(f"[fleet] ({fleet['fleet_s']:.1f}s)", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    examples = phase_examples(card)
+    t0 = time.perf_counter()
+    mesh, m_launches = phase_mesh(dev, card, rec)
+    mesh["mesh_s"] = time.perf_counter() - t0
+    print(f"[mesh] ({mesh['mesh_s']:.1f}s)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     f32_launches = lm["checks"]["f32_launches"]
     launches = {n: launches[n] + d_launches[n] + lm_launches[n]
                 + f32_launches[n] + e_launches[n] + s_launches[n]
-                + f_launches[n] for n in launches}
+                + f_launches[n] + m_launches[n] for n in launches}
 
     t0 = time.perf_counter()
-    remote = {n: sum(c[n] for c in fleet["launches_children"].values())
-              for n in launches}
+    children = list(fleet["launches_children"].values()) \
+        + list(mesh["launches_children"].values())
+    remote = {n: sum(c[n] for c in children) for n in launches}
     line, per_shape = phase_timing(rec, launches, err, card, remote)
     print(f"[timing] ({time.perf_counter() - t0:.1f}s)", flush=True)
 
@@ -2784,7 +3161,8 @@ def main(argv=None) -> int:
         "simt_build": simt_build,
         "report": report, "checks": checks, "profile": prof,
         "durable": durable, "lm": lm, "envelope": envelope,
-        "steady": steady, "fleet": fleet, "examples": examples,
+        "steady": steady, "fleet": fleet, "mesh": mesh,
+        "examples": examples,
         "kernels": line, "kernel_shapes": per_shape,
         "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"[total] total_s {time.perf_counter() - t_start:.1f}", flush=True)

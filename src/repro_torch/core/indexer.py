@@ -1,11 +1,20 @@
-"""Indexing driver in PyTorch: the single-process (``mesh=None``) path of
-the JAX package's ``core/indexer.py``.
+"""Indexing in PyTorch: the port's counterpart of the JAX package's
+``core/indexer.py``, the multi-device step (``make_index_step``) and the
+host driver (``Indexer``).
 
-Doc batches accumulate in the in-memory buffer (``FlushPolicy``); a flush
-inverts the buffer on the device (``core.invert``), builds a host
-``Segment`` and feeds the tiered ``MergeDriver``. ``refresh()`` snapshots
-the live segment set into an ``IndexSearcher`` without force-merging
-(near-real-time search while indexing), reusing cached readers.
+The step, one SPMD program run by every rank of a ``distributed.Mesh``:
+  tokenized doc buffers (each rank its own block)
+    -> per-rank sort inversion + send buffers       (core.shuffle)
+    -> all-to-all term shuffle over ``model``      (distributed.mesh)
+    -> term-sharded postings, doc-delta and position-delta streams
+       packed by the hand-written pack kernel      (kernels.postings_pack)
+
+The host driver, ``Indexer``: doc batches accumulate in the in-memory
+buffer (``FlushPolicy``); a flush inverts the buffer on the device
+(``core.invert``), builds a host ``Segment`` and feeds the tiered
+``MergeDriver``. ``refresh()`` snapshots the live segment set into an
+``IndexSearcher`` without force-merging (near-real-time search while
+indexing), reusing cached readers.
 
 Document lifecycle: ``delete(doc_ids)`` tombstones docs and
 ``update(doc_id, doc)`` is delete + re-add under the flush lock. Deletes
@@ -41,8 +50,9 @@ With a ``publisher`` (``replication.CommitPublisher``) every durable
 commit (``commit()``, ``finalize()``) is announced to it, and
 ``envelope_report()`` grows its ``fleet`` section.
 
-Not ported yet (raises ``NotImplementedError`` naming ``ROADMAP.md``):
-the multi-device mesh step.
+``Indexer(mesh=...)`` keeps the mesh and indexes as without one, as the
+JAX package's ``DistributedIndexer`` does: the mesh runs through
+``make_index_step``.
 """
 from __future__ import annotations
 
@@ -62,8 +72,12 @@ from repro_torch.core.query import PruneStats
 from repro_torch.core.searcher import (IndexSearcher, ReaderCache,
                                        evaluator_cache_hits)
 from repro_torch.core.segments import Segment, segment_from_run
+from repro_torch.core.shuffle import (invert_and_shuffle,
+                                      shuffle_receive, shuffle_send)
 from repro_torch.data.corpus import iter_spooled
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import Mesh
+from repro_torch.kernels.postings_pack import ops as pack_ops
 from repro_torch.storage.commit import RecoveryInfo, SegmentStore
 from repro_torch.storage.directory import CachingDirectory
 from repro_torch.storage.retry import RetryingDirectory, RetryPolicy
@@ -76,11 +90,107 @@ from repro_torch.storage.wal import (WriteAheadLog, encode_wal_add,
 _ENVELOPE_PARAMS = env.EnvelopeParams()
 
 
-def _later_slice(what: str, item: str = None) -> NotImplementedError:
-    """The error of a path still to port, naming its ``ROADMAP.md`` item."""
-    where = "ROADMAP.md, Queue 1" + (f", {item}" if item else "")
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see {where}")
+class IndexStep:
+    """The SPMD indexing step of one rank of ``mesh`` (see the module
+    docstring; ``make_index_step`` builds it). ``step(tokens)`` takes this
+    rank's (docs_per_shard, doc_len) block and returns its outputs, the
+    JAX step's per-device slice: ``run`` (term-sharded ``InvertedRun``),
+    ``stats`` (``ShuffleStats``), ``packed_docs``/``bw_docs`` and
+    ``packed_pos``/``bw_pos`` (the packed doc-delta and position-delta
+    streams) and ``packed_bytes`` (their compacted size, a float).
+
+    The step is ``core.shuffle.invert_and_shuffle`` over ``model``, then
+    pack; ``send`` and ``receive`` run its stages on either side of the
+    all-to-all apart, for ``index_step_loopback`` (every rank of a mesh
+    in one process) and for timing."""
+
+    def __init__(self, cfg, mesh: Mesh, doc_len: int, device=None):
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.distributed.Mesh, "
+                            f"got {type(mesh).__name__}")
+        mesh.axis_size("model")
+        self.mesh = mesh
+        self.doc_len = int(doc_len)
+        self.device = resolve_device(device)
+        self.payload = getattr(cfg, "shuffle_payload", "raw")
+        # the optimized variant bundles the single-key sort
+        self.single_key = self.payload == "packed2"
+
+    def _block(self, tokens):
+        """This rank's tokens on the step's device, and its first doc id:
+        the rank's flat index times its docs."""
+        toks = torch.as_tensor(tokens).to(self.device, torch.int32)
+        if toks.dim() != 2 or toks.shape[1] != self.doc_len:
+            raise ValueError(f"tokens must be (docs, {self.doc_len}), got "
+                             f"{tuple(toks.shape)}")
+        return toks, self.mesh.flat_index() * toks.shape[0]
+
+    def _packed(self, run, stats) -> dict:
+        """The step's outputs: the run, its stats, both streams packed."""
+        out = {"run": run, "stats": stats}
+        for key, stream in (("docs", run.postings_doc_delta),
+                            ("pos", run.pos_delta)):
+            nb = stream.shape[0] // pack_ops.BLOCK
+            packed, bw = pack_ops.pack(
+                stream[:nb * pack_ops.BLOCK].reshape(nb, pack_ops.BLOCK))
+            out[f"packed_{key}"], out[f"bw_{key}"] = packed, bw
+        out["packed_bytes"] = (pack_ops.packed_bytes(out["bw_docs"])
+                               + pack_ops.packed_bytes(out["bw_pos"]))
+        return out
+
+    def send(self, tokens):
+        """The send stage alone: this rank's inversion into the
+        all-to-all's buffers (``core.shuffle.ShuffleSend``)."""
+        toks, base = self._block(tokens)
+        return shuffle_send(toks, base, n_dest=self.mesh.axis_size("model"),
+                            payload=self.payload,
+                            single_key_sort=self.single_key)
+
+    def receive(self, sent, received) -> dict:
+        """The receive stage alone, on the buffers that arrived."""
+        return self._packed(*shuffle_receive(sent, received,
+                                             self.mesh.axis_index("model")))
+
+    def __call__(self, tokens) -> dict:
+        toks, base = self._block(tokens)
+        return self._packed(*invert_and_shuffle(
+            toks, base, mesh=self.mesh, payload=self.payload,
+            single_key_sort=self.single_key))
+
+
+def make_index_step(cfg, mesh: Mesh, doc_len: int,
+                    device=None) -> IndexStep:
+    """The indexing step of this rank of ``mesh`` (a
+    ``distributed.Mesh`` with a ``model`` axis, from ``make_mesh``): the
+    JAX package's ``make_index_step``, one rank at a time. ``device``
+    None runs on CUDA (raises without a CUDA device); ``"cpu"`` runs the
+    plain PyTorch path on the host."""
+    return IndexStep(cfg, mesh, doc_len, device)
+
+
+def index_step_loopback(cfg, shape: dict, blocks, doc_len: int,
+                        device="cpu") -> list:
+    """Every rank of a mesh of ``shape`` in this process: each rank's
+    ``IndexStep.send`` on its block (``blocks[rank]``), the all-to-all
+    done by moving the send buffers' rows between ranks, then each
+    rank's ``receive``. Returns the outputs by rank. The reference the
+    tests and ``chip_smoke.py`` hold the collective path against; no
+    main path runs it."""
+    size = Mesh(shape, 0).size
+    if len(blocks) != size:
+        raise ValueError(f"{len(blocks)} blocks for a mesh of {size} ranks")
+    steps = [IndexStep(cfg, Mesh(shape, r), doc_len, device)
+             for r in range(size)]
+    sends = [s.send(b) for s, b in zip(steps, blocks)]
+    outs = []
+    for step, sent in zip(steps, sends):
+        m = step.mesh.axis_index("model")
+        line = step.mesh.axis_ranks("model")
+        received = tuple(torch.stack([sends[src].buffers[i][m]
+                                      for src in line])
+                         for i in range(len(sent.buffers)))
+        outs.append(step.receive(sent, received))
+    return outs
 
 
 @dataclass
@@ -111,7 +221,7 @@ class Indexer:
     # the media pair envelope_report charges (core/envelope.py MEDIA keys)
     source: str = "ceph"
     target: str = "ssd"
-    mesh: object = None
+    mesh: object = None      # kept, never read (as in the JAX package)
     stats: IndexStats = field(default_factory=IndexStats)
     merger: MergeDriver = None
     reader_cache: ReaderCache = None
@@ -172,9 +282,6 @@ class Indexer:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.mesh is not None:
-            raise _later_slice("the multi-device mesh indexing step",
-                              "item 3, the multi-device slice")
         self.merger = MergeDriver(
             fanout=self.cfg.merge_fanout,
             reorder_on_merge=getattr(self.cfg, "reorder_on_merge", False))

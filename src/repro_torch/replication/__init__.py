@@ -2,11 +2,10 @@
 
 Manifest-shipping replication (``publisher``/``syncer``), scatter-gather
 top-k with cross-shard bound sharing (``fleet``), and process-per-replica
-serving (``server``), on the host path: the port's counterpart of the
-JAX package's ``repro.replication``, with its names. The mesh variant of
-the fleet merge (``merge_topk_sharded(mesh=...)``,
-``FleetSearcher(mesh=...)``) raises until the multi-device slice
-(``ROADMAP.md``, Queue 1)."""
+serving (``server``): the port's counterpart of the JAX package's
+``repro.replication``, with its names. The fleet merge runs on the host,
+or over a ``distributed.Mesh`` (``merge_topk_sharded(mesh=...)``,
+``FleetSearcher(mesh=...)``)."""
 from repro_torch.replication.fleet import (CollectionStats, FleetSearcher,
                                            FleetStats, ShardSpec,
                                            merge_topk_sharded)

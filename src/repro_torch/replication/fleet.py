@@ -21,11 +21,13 @@ single ``IndexSearcher`` over the union corpus:
     whose best possible score is below the bound for every query in the
     batch is skipped without being contacted at all.
 
-The final merge runs on the host (``merge_topk_sharded``), with
+The final merge (``merge_topk_sharded``) runs on the host, with
 ``lax.top_k``'s tie order (``core/query.py::topk``), so the ids equal
-the JAX package's too. The mesh variant of the merge waits for the
-port's collective layer (``ROADMAP.md``, Queue 1, the multi-device
-item): ``mesh=`` raises until then.
+the JAX package's too. Given a ``distributed.Mesh`` (``FleetSearcher(
+mesh=, mesh_axis=)``), every rank of the mesh holds the whole (S, B, k)
+partials, as every JAX device sees the global array: it keeps its S/n
+shards' rows, all-gathers them over the axis and runs the same merge,
+so every rank returns the same global top-k.
 
 Replica objects are duck-typed (``ReplicaSyncer`` in-process,
 ``RemoteReplica`` across processes): ``replica_id``, ``epoch``,
@@ -48,11 +50,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.core.indexer import _later_slice
 from repro_torch.core.query import PruneStats, topk
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import Mesh
 
-_MULTI_DEVICE = "item 3, the multi-device slice and its collective layer"
 _EWMA_ALPHA = 0.2     # weight of the newest batch in a replica's latency
 
 
@@ -135,18 +136,44 @@ class ShardSpec:
         return (h % np.uint64(self.n_shards)).astype(np.int64)
 
 
-def merge_topk_sharded(vals, ids, k: int, mesh=None):
-    """Global top-k from stacked per-shard partials ``(S, B, k)`` on the
-    host: the shard-major flattening of the JAX package and its top-k
-    with the lower index first among equal values, so ties resolve to the
-    same ids. Returns CPU tensors ``(vals (B, k) float32, ids (B, k)
-    int64)``, padded with (0, -1) when fewer than k exist. ``mesh`` (the
-    SPMD merge over a device mesh) raises: see the module docstring."""
-    if mesh is not None:
-        raise _later_slice("merge_topk_sharded over a device mesh",
-                          _MULTI_DEVICE)
+def _check_mesh(mesh, axis: str) -> None:
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.distributed.Mesh, got "
+                        f"{type(mesh).__name__}")
+    mesh.axis_size(axis)          # raises ValueError for an unknown axis
+
+
+def _gather_shards(vals, ids, mesh: Mesh, axis: str):
+    """The mesh merge's collective: this rank's S/n shards' rows of the
+    (S, B, k) partials, all-gathered over ``axis`` (``lax.all_gather``,
+    tiled) on the mesh's device. S must divide by the axis size, as the
+    JAX package's ``P(axis)`` split needs."""
+    _check_mesh(mesh, axis)
+    n = mesh.axis_size(axis)
+    S = int(vals.shape[0])
+    if S % n:
+        raise ValueError(f"{S} shards do not split over the {n} ranks of "
+                         f"mesh axis {axis!r}")
+    i, per = mesh.axis_index(axis), S // n
+    mine = slice(i * per, (i + 1) * per)
+    v = mesh.all_gather(vals[mine].to(mesh.device), axis)
+    d = mesh.all_gather(ids[mine].to(mesh.device), axis)
+    return v.cpu(), d.cpu()
+
+
+def merge_topk_sharded(vals, ids, k: int, mesh=None, axis: str = "shard"):
+    """Global top-k from stacked per-shard partials ``(S, B, k)``: the
+    shard-major flattening of the JAX package and its top-k with the
+    lower index first among equal values, so ties resolve to the same
+    ids. Returns CPU tensors ``(vals (B, k) float32, ids (B, k) int64)``,
+    padded with (0, -1) when fewer than k exist. With ``mesh`` (a
+    ``distributed.Mesh``) every rank passes the whole partials, gathers
+    its shards' rows with the others' over ``axis`` and returns the same
+    result as the host path."""
     vals = torch.as_tensor(np.asarray(vals, np.float32))
     ids = torch.as_tensor(np.asarray(ids, np.int64))
+    if mesh is not None:
+        vals, ids = _gather_shards(vals, ids, mesh, axis)
     S, B = int(vals.shape[0]), int(vals.shape[1])
     vf = vals.permute(1, 0, 2).reshape(B, S * vals.shape[2])
     idf = ids.permute(1, 0, 2).reshape(B, S * ids.shape[2])
@@ -180,14 +207,18 @@ class FleetSearcher:
     ``device``), so a scheduler can serve a whole fleet exactly like one
     local index. ``device`` None is CUDA (raises without one) or
     ``"cpu"``; every replica that names a device must serve on it.
-    Results come back as CPU tensors, as an ``IndexSearcher``'s do."""
+    Results come back as CPU tensors, as an ``IndexSearcher``'s do.
+    ``mesh``: a ``distributed.Mesh`` the final merge runs over, along
+    ``mesh_axis`` (the module docstring); every rank of it serves the
+    same batches."""
 
-    def __init__(self, shards, mesh=None,
+    def __init__(self, shards, mesh=None, mesh_axis: str = "shard",
                  latency_aware: bool = True, probe_every: int = 16,
                  device=None):
         if mesh is not None:
-            raise _later_slice("FleetSearcher over a device mesh",
-                              _MULTI_DEVICE)
+            _check_mesh(mesh, mesh_axis)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self.shards = [list(g) for g in shards]
         if not (self.shards and all(self.shards)):
             raise ValueError("every shard needs at least one replica")
@@ -354,7 +385,8 @@ class FleetSearcher:
             self.stats.shards_skipped += skipped
             self.prune_stats.add(PruneStats(queries=B, batches=1,
                                             segments_skipped=skipped))
-        return merge_topk_sharded(vals, ids, k)
+        return merge_topk_sharded(vals, ids, k, mesh=self.mesh,
+                                  axis=self.mesh_axis)
 
     def search(self, q_terms, k: int = 10):
         v, i = self.search_batched(np.asarray(q_terms)[None], k)

@@ -277,10 +277,124 @@ def test_phase_fleet_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     assert all(set(s) == {"first", "delta"} and s["first"]["files"] > 0
                for s in rep["syncs"].values())
     assert len(rep["deleted"]) == 2 * chip_smoke.FLEET_DELETES
-    assert rep["oracle_docs"] == 2 * (5 * 64 - chip_smoke.FLEET_DELETES)
+    assert rep["oracle_docs"] == 2 * ((chip_smoke.FLEET_BATCHES + 1) * 64
+                                      - chip_smoke.FLEET_DELETES)
     assert rep["repair"]["files"] >= 1 and rep["anti_entropy"]["repaired"]
     assert all(l["replicas_current"] == 2 for l in rep["ledgers"])
     assert not list((chip_smoke.ROOT / "build").glob("chip_smoke_fleet_*"))
+
+
+def _mesh_rank_report(digests, m, **kw):
+    rep = {"digests": dict(digests), "packed2_eq_raw": True, "owned": True,
+           "launches": {"pack": 2}, "merge_eq_host": True,
+           "stats": {"sent": 10, "recv": 10 + (2 * m - 1) * 3, "dropped": 0},
+           "coords": {"data": 0, "model": m}}
+    rep.update(kw)
+    return rep
+
+
+def _mesh_inputs():
+    want = [{"run.term": f"h{r}", "packed_bytes": "1.0"} for r in range(4)]
+    ranks = [_mesh_rank_report(w, r % 2) for r, w in enumerate(want)]
+    want1 = {"run.term": "w1", "packed_bytes": "2.0"}
+    world1 = _mesh_rank_report(want1, 0)
+    del world1["packed2_eq_raw"]
+    return ranks, want, world1, want1
+
+
+def test_mesh_gates_pass(chip_smoke):
+    chip_smoke.mesh_gates(*_mesh_inputs())
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("digest", r"rank 2: \['run.term'\] differ"),
+    ("world1_digest", r"world 1: \['packed_bytes'\] differ"),
+    ("raw", "rank 1: packed2 != raw"), ("owner", "rank 3: a term off"),
+    ("pack", "rank 0: pack never launched"),
+    ("world1_pack", "world 1: pack never launched"),
+    ("merge", "rank 2: the mesh merge"), ("conserve", "sent 40 != recv")])
+def test_mesh_gates_fail_on_a_planted_fault(chip_smoke, fault, match):
+    ranks, want, world1, want1 = _mesh_inputs()
+    if fault == "digest":
+        ranks[2]["digests"]["run.term"] = "x"
+    elif fault == "world1_digest":
+        world1["digests"]["packed_bytes"] = "2.5"
+    elif fault == "raw":
+        ranks[1]["packed2_eq_raw"] = False
+    elif fault == "owner":
+        ranks[3]["owned"] = False
+    elif fault == "pack":
+        ranks[0]["launches"] = {"pack": 0}
+    elif fault == "world1_pack":
+        world1["launches"] = {}
+    elif fault == "merge":
+        ranks[2]["merge_eq_host"] = False
+    else:
+        ranks[0]["stats"]["recv"] += 1
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.mesh_gates(ranks, want, world1, want1)
+
+
+def test_mesh_digests_see_one_flipped_bit(chip_smoke):
+    from repro_torch.configs.lucene_envelope import SMOKE
+    from repro_torch.core.indexer import index_step_loopback
+    rng = np.random.default_rng(0)
+    blocks = [rng.integers(0, 300, (SMOKE.docs_per_shard, SMOKE.doc_len)
+                           ).astype(np.int32) for _ in range(2)]
+    a, b = (index_step_loopback(SMOKE, {"data": 1, "model": 2}, blocks,
+                                SMOKE.doc_len) for _ in range(2))
+    assert chip_smoke.mesh_digests(a[0]) == chip_smoke.mesh_digests(b[0])
+    assert chip_smoke.mesh_digests(a[0]) != chip_smoke.mesh_digests(a[1])
+    b[0]["packed_pos"].view(-1)[7] ^= 1 << 30
+    diff = [f for f, h in chip_smoke.mesh_digests(a[0]).items()
+            if chip_smoke.mesh_digests(b[0])[f] != h]
+    assert diff == ["packed_pos"]
+    assert set(chip_smoke.mesh_digests(a[0])) >= {
+        "run.postings_term", "stats.dropped", "bw_docs", "packed_bytes"}
+
+
+def test_mesh_merge_inputs_have_ties_and_split_over_4(chip_smoke):
+    vals, ids, k = chip_smoke.mesh_merge_inputs(np.random.default_rng(3))
+    S, B, _ = vals.shape
+    assert (S, B, k) == chip_smoke.MESH_MERGE and S % 4 == 0
+    assert (np.diff(vals, axis=2) <= 0).all() and (ids[:, :, -1] == -1).all()
+    flat = vals[:, 0, :-2].ravel()
+    assert len(np.unique(flat)) < len(flat)       # ties across shards
+
+
+def test_phase_mesh_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
+    """The whole [mesh] phase on the CPU at SMOKE width with the packed2
+    payload (CONFIG replaced here; the ranks get it from this process):
+    4 spawned ranks over gloo, world 1 over gloo in this process, the
+    plain loopbacks beside them. No kernel launches on the
+    CPU, so the gates get the reports and are checked here without the
+    launch gates."""
+    from repro_torch.configs import lucene_envelope
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    monkeypatch.syspath_prepend(str(ROOT))
+    gated = []
+    monkeypatch.setattr(chip_smoke, "mesh_gates", lambda *a: gated.append(a))
+    monkeypatch.setattr(lucene_envelope, "CONFIG", dataclasses.replace(
+        lucene_envelope.SMOKE, shuffle_payload="packed2"))
+    rep, launches = chip_smoke.phase_mesh(
+        torch.device("cpu"), "cpu", chip_smoke.ShapeRecorder())
+    (ranks, want, world1, want1), = gated
+    for r in ranks:
+        r["launches"] = {"pack": 2}
+    world1["launches"] = {"pack": 2}
+    chip_smoke.mesh_gates(ranks, want, world1, want1)
+    assert not any(launches.values())
+    assert [r["coords"] for r in rep["ranks"]] == [
+        {"data": d, "model": m} for d in range(2) for m in range(2)]
+    for r in rep["ranks"]:
+        t = r["timing"]
+        assert 2 * t["raw"]["shuffle_bytes"] \
+            == 3 * t["packed2"]["shuffle_bytes"]
+        assert not t["packed2"]["staged"] and t["packed2"]["step_ms"] > 0
+    assert sum(r["stats"]["sent"] for r in rep["ranks"]) > 0
+    assert rep["world1"]["backend"] == "gloo"
+    assert set(rep["launches_children"]) == {f"rank{r}" for r in range(4)}
+    assert not list((chip_smoke.ROOT / "build").glob("chip_smoke_mesh_*"))
 
 
 PAIRS = (("nas", "ssd"), ("ssd", "ssd"))

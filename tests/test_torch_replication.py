@@ -7,10 +7,10 @@ the port with ``device="cpu"``. The port's fleet must equal its own union
 oracle (one exhaustive searcher over the union of the shards' committed
 segments) and the JAX fleet, values bit for bit and ids exactly; plans,
 ledgers, repairs and routing counters must be the JAX package's. The
-mesh variant of the merge raises in the port (``ROADMAP.md``, Queue 1,
-the multi-device item), and so do entry points given no device where
-CUDA is absent. A kernel failure inside a replica's decode propagates:
-it is never mistaken for a corrupt segment.
+mesh variant of the merge refuses what is not a mesh it can split over
+(its collective path is ``test_torch_mesh_procs.py``), and entry points
+given no device raise where CUDA is absent. A kernel failure inside a
+replica's decode propagates: it is never mistaken for a corrupt segment.
 
 The process-per-replica test is in ``test_torch_replication_procs.py``.
 The WAL group-commit, scrub and throttle tests of the JAX file have
@@ -36,6 +36,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core.indexer import Indexer
 from repro_torch.core.searcher import ReaderCache
 from repro_torch.data.corpus import TINY, SyntheticCorpus
+from repro_torch.distributed import Mesh
 from repro_torch.storage import codec as tcodec
 
 CFG = get_arch("lucene-envelope").smoke
@@ -383,14 +384,27 @@ def test_merge_topk_sharded_host_path(ties):
 
 
 def test_mesh_variants_raise_naming_the_multi_device_item():
+    """The mesh merge is ported (its collective path over 4 processes is
+    ``tests/test_torch_mesh_procs.py``); what is not a
+    ``repro_torch.distributed.Mesh``, an axis it lacks, or shards that do
+    not split over the axis raise a clear error."""
     vals = np.zeros((2, 1, 3), np.float32)
     ids = np.zeros((2, 1, 3), np.int32)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="distributed.Mesh, got object"):
         trep.merge_topk_sharded(vals, ids, 3, mesh=object())
+    with pytest.raises(ValueError, match="no axis 'shard'"):
+        trep.merge_topk_sharded(vals, ids, 3, mesh=Mesh({"model": 2}, 0))
+    with pytest.raises(ValueError, match="2 shards do not split"):
+        trep.merge_topk_sharded(vals, ids, 3, mesh=Mesh({"shard": 4}, 0))
     ix, pub = _build_shard(PORT, 0, n_batches=1)
     group = _replicas(PORT, ix, pub)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
+    with pytest.raises(TypeError, match="distributed.Mesh, got object"):
         trep.FleetSearcher([group], mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="no axis 'shard'"):
+        trep.FleetSearcher([group], mesh=Mesh({"data": 1}, 0), device="cpu")
+    fleet = trep.FleetSearcher([group], mesh=Mesh({"shard": 1}, 0),
+                               mesh_axis="shard", device="cpu")
+    assert fleet.mesh_axis == "shard"
 
 
 def test_entry_points_need_cuda_or_explicit_cpu(tmp_path):

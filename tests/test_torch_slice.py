@@ -86,13 +86,28 @@ def test_entry_points_need_cuda_or_explicit_cpu():
 
 
 def test_later_slices_raise_not_implemented():
-    """The mesh is still to port and says where it stands; the
+    """The paths once left to later slices are ported and raise nothing.
+    ``Indexer(mesh=...)`` keeps the mesh and indexes as without one, as
+    the JAX package's ``DistributedIndexer`` does (its mesh step is
+    ``make_index_step``, ``tests/test_torch_shuffle.py``); the
     replication publisher (a plain object here: the indexer only calls
     ``on_commit`` and ``report``), the refresh daemon, background merges
-    and ``envelope_report`` are ported: they construct, run and report
-    the JAX package's keys."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Indexer(cfg=SMOKE, device="cpu", mesh=object())
+    and ``envelope_report`` construct, run and report the JAX package's
+    keys."""
+    mesh = object()
+    batch = np.random.default_rng(9).integers(0, 4096, (32, 64)).astype(
+        np.int32)
+    q = np.ascontiguousarray(batch[:4, :3])
+    served = []
+    for kw in ({"mesh": mesh}, {}):
+        plain = Indexer(cfg=SMOKE, device="cpu", **kw)
+        plain.index_batch(batch)
+        served.append(plain.refresh().search_batched(q, 10))
+        assert plain.mesh is kw.get("mesh")
+        plain.close()
+    (v_mesh, i_mesh), (v, i) = served
+    assert torch.equal(v_mesh.view(torch.int32), v.view(torch.int32))
+    assert torch.equal(i_mesh, i) and bool((i >= 0).any())
     pub = types.SimpleNamespace(gens=[], report=lambda: {"replicas": 0})
     pub.on_commit = pub.gens.append
     with_pub = Indexer(cfg=SMOKE, device="cpu", publisher=pub,
