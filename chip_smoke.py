@@ -10,10 +10,11 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 2. build    — compile the hand-written kernels from ``src/repro_torch/
               kernels/csrc`` (one nvcc per source, in parallel); the
               tensor-core flash kernel's SASS must hold HGMMA (wgmma)
-              instructions and its D = 256 instantiation must not spill,
-              nor may the SIMT flash kernel's D = 256 instantiations (f32
-              and bf16), pack, unpack, bm25_blocks (with and without
-              partials), compact or any instantiation of the midgrid walk;
+              instructions and its instantiations on the LM paths (D = 256
+              for gemma2, D = 128 for moonshot) must not spill, nor may the
+              SIMT flash kernel's D = 256 instantiations (f32 and bf16),
+              pack, unpack, bm25_blocks (with and without partials),
+              compact or any instantiation of the midgrid walk;
 3. parity   — each kernel against its plain PyTorch version on the card:
               exactly, pack/unpack on random words at 1, 31, 33, 4096,
               4097 and 2^21 + 3 blocks (the grid-stride tail; past one
@@ -56,24 +57,41 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               the limit (the two f32 prefills are the f32 path's counted
               run: 84 SIMT launches); at SMOKE width, the same weights on
               the card and on the CPU. The LM's state is then freed;
-6. slice    — the retrieval main path through ``repro_torch.launch.serve``
+6. moe      — the MoE LM, alone on the card: ``launch.serve --mode lm``
+              with moonshot-v1-16b-a3b at full width and depth (48
+              layers, 64 experts top-6, 27.72 B params in bf16, seeded
+              random weights), 4 requests of 4096 tokens, 16 generated;
+              then ``DecodeScheduler`` with 2 slots serving requests of
+              4096 and 300 tokens. The gates of [lm] (48 tensor-core
+              launches per prefill), plus the share of the prefill's
+              assignments dropped past capacity;
+7. moe-checks — [lm-checks] for moonshot: the flash kernels on the D = 128
+              q, k, v of its prefill; prefill(t + 1) against prefill(t) +
+              decode at a dropless capacity factor, on the logits and on
+              the MoE layers' outputs, in bf16 and f32 (96 SIMT launches;
+              the token's routing may differ between the paths only at a
+              near-tie), with planted faults at a wrong position and with
+              every assignment sent to the next expert; moonshot and
+              llama4 (with patches) at SMOKE width on the card (on the
+              CPU's routing) and on the CPU. Its state is then freed;
+8. slice    — the retrieval main path through ``repro_torch.launch.serve``
               with the full ``lucene_envelope`` CONFIG over a corpus with
               ClueWeb09b's law scaled to ``--docs // SLICE_CUT``: index,
               refresh, serve ``--requests`` queries (32 slots, 4 terms,
               k=10), index more, refresh, serve, delete 8 + update 4
               docs, refresh, serve;
-7. checks   — pruned == exhaustive bit for bit on the first 32 queries on
+9. checks   — pruned == exhaustive bit for bit on the first 32 queries on
               the card, in the tombstone-free and the tombstoned snapshot,
               every pruned id carrying its true score (ids may differ only
               among equal scores); the card's top-k equal the port's CPU
               path on a 2^14-doc index built from the same batch; beside
               it (neither is timed as a metric), ``examples/torch_*.py``
               on the card, each must exit 0;
-8. profile  — where serving time goes: device busy share of 4 served
+10. profile  — where serving time goes: device busy share of 4 served
               batches under ``torch.profiler`` (device-side events only),
               top kernels, and the host functions with the most own time
               under ``cProfile``;
-9. durable  — the durable path at ``--docs``: index every batch into an
+11. durable  — the durable path at ``--docs``: index every batch into an
               ``FSDirectory`` on the local disk with the WAL, apply the
               slice's 8 deletes + 4 updates, ``commit()``; recover with
               ``open_searcher(..., ReaderCache(compact=True))`` and serve
@@ -84,17 +102,18 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               indexer, reopen the directory and check that the WAL
               replays the acked docs and a query batch returns what it
               returned before the drop; its ``envelope_report()``;
-10. envelope — the paper's experiment at CONFIG width: per media pair
+12. envelope — the paper's experiment at CONFIG width: per media pair
               (isolated ``nas -> ssd``, two throttles; shared ``ssd ->
-              ssd``, one), 4 batches spooled into a throttled RAM source,
-              ``index_spooled`` into a throttled ``FSDirectory``,
-              ``finalize()``, ``envelope_report()``; the commit recovered
-              on the card serves 32 queries (pruned == exhaustive). Gates:
-              the measured source bytes are the spooled bytes, the encoded
-              bytes are the live segment files' bytes, and the isolated
-              pair's measured GB/min beats the shared pair's; then
-              ``calibrate()`` refitted with both runs;
-11. steady  — serving while indexing, open loop: an ``Indexer`` with the
+              ssd``, one), 1 batch (2^14 docs) spooled into a throttled
+              RAM source, ``index_spooled`` into a throttled
+              ``FSDirectory``, ``finalize()``, ``envelope_report()``; the
+              commit recovered on the card serves 32 queries (pruned ==
+              exhaustive). Gates: the measured source bytes are the
+              spooled bytes, the encoded bytes are the live segment
+              files' bytes, and the isolated pair's measured GB/min
+              beats the shared pair's; then ``calibrate()`` refitted with
+              both runs;
+13. steady  — serving while indexing, open loop: an ``Indexer`` with the
               refresh daemon (1 s) and 2 merge threads, a cached
               ``QueryScheduler`` attached; 4 seed batches (the warm probe
               timed once more, uncached, and its QPS printed), then
@@ -108,13 +127,13 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               scores, no deleted doc served, the last generation's cache
               entries == uncached searches. Latency is reported for all
               arrivals and for the cache misses alone;
-12. fleet   — the replicated fleet (``repro_torch.replication``): 2 range
-              shards x 2 replicas at CONFIG width, 2^15 docs a shard
+14. fleet   — the replicated fleet (``repro_torch.replication``): 2 range
+              shards x 2 replicas at CONFIG width, 2^14 docs a shard
               committed, then 2^14 more and 8 deletes a shard and a second
               commit; shard 0's replicas are ``ReplicaSyncer``s in this
               process, shard 1's ``RemoteReplica`` processes, each with its
               own CUDA context; first and delta sync (wall, lag, files,
-              bytes); 16 closed-loop batches of 32 queries through
+              bytes); 8 closed-loop batches of 32 queries through
               ``FleetSearcher``; a rotted ``.pst`` found by a sweep and
               quarantined (8 degraded batches, none served by it), then
               ``repair``; a rotted ``.doc`` on a replica process healed
@@ -123,7 +142,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               bit for bit, ids by true score), no deleted doc served;
               unpack and bm25_blocks or midgrid launched in this process
               and in each replica process;
-13. mesh    — the multi-device indexing step (``make_index_step``: invert,
+15. mesh    — the multi-device indexing step (``make_index_step``: invert,
               all-to-all term shuffle over ``model``, pack) at full CONFIG
               width, 4096 docs x 1024 tokens a rank of CW09B_SMALL's law:
               a world of 4 processes on this card over gloo (a (2, 2)
@@ -140,7 +159,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               world; every term on model index m is m mod 2; pack launched
               in each rank's counted step; ``merge_topk_sharded`` over a
               (4,) and a (1,) ``shard`` mesh == the host merge;
-14. timing  — each kernel on the very inputs the paths gave it, at every
+16. timing  — each kernel on the very inputs the paths gave it, at every
               shape it was launched with (blocks; for flash attention
               batch, length and window): held against its plain version
               once more, then its median device time over 21 launches
@@ -161,7 +180,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               (its flags equal to the op's) and the walk's ns per step
               of block_rows blocks.
 
-In every counted run (the LM path, the f32 LM prefills, the slice, the
+In every counted run (the two LM paths, their f32 prefills, the slice, the
 durable path's indexing + recovery + serving and its WAL run, each
 envelope pair's indexing + recovery + serving, steady's whole run, and
 the fleet's writers, syncs, serving and heals, and [mesh]'s first step
@@ -185,10 +204,21 @@ half the slice's QPS and followed its depth (201.75 offered at 2^18,
 script took 1027.7-1125.2 s, and with [mesh] added 1155.2-1212.9 s on
 slower hosts before some of the cuts below and 1016.4 s on a fast host
 after all of them. To make room: the slice runs at 2^16 (``SLICE_CUT``
-16), [fleet]'s shards hold 2^15 docs, not 2^16, and [examples] runs
-beside [checks]. [steady] cannot give time and keep its gates: its one
-merge needs all 40 batches (4 seed + 24 ticks ran none), and 16 seed +
-24 ticks took as long as 4 + 36.
+16) and [examples] runs beside [checks]. [steady] cannot give time and
+keep its gates: its one merge needs all 40 batches (4 seed + 24 ticks
+ran none), and 16 seed + 24 ticks took as long as 4 + 36. The time limit
+is held as a ratio to the host's own speed: ``total_s`` at most 1.85x
+the durable path's seconds (1.89 with [mesh], over the limit on a host
+1.19x slower). [moe] and [moe-checks] took 38.9 s, and with them the
+script took 992.8 s against a durable path of 531.2 s (1.869), with
+[envelope] at 2^15 docs a pair (28.6 s at 2^16, 14.8 s), [fleet] at
+2^14 docs a shard (77.2 s at 2^15, 49.5 s) and [timing]'s plain
+versions timed once after a warm-up (36.6 s with 3, 30.5 s with
+moonshot's shapes added). So [envelope] runs at 2^14 docs a pair, not
+2^16 (``ENVELOPE_BATCHES``), [fleet] at 2^14 docs a shard, not 2^15
+(``FLEET_BATCHES``), with 8 closed-loop batches, not 16
+(``FLEET_SERVE_BATCHES``), [mesh] times 3 steps a payload, not 5
+(``MESH_STEPS``), and [timing] times each plain version once.
 
 Prints the script's ``total_s``, the kernels as one JSON line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Details
@@ -523,13 +553,36 @@ LM_ARGV = ["--mode", "lm", "--arch", "gemma2-9b", "--config", "full",
            "--requests", "4", "--prompt-len", "8192", "--gen", "16"]
 SCHED_PROMPTS = (8192, 4500, 300)   # ragged requests through 2 slots
 SCHED_GEN = 16
+# the MoE LM at full width and depth, its weights in bf16 (55.4 GB; fp32
+# would not fit the card)
+MOE_ARGV = ["--mode", "lm", "--arch", "moonshot-v1-16b-a3b", "--config",
+            "full", "--param-dtype", "bfloat16", "--requests", "4",
+            "--prompt-len", "4096", "--gen", "16"]
+MOE_SCHED_PROMPTS = (4096, 300)
 LM_FULL_CHECK_LEN = 4500            # past gemma2's 4096-token window
 # see phase_lm_checks; on gemma2-9b's random weights on an H100 the sound
 # readings were 0.0205 (bf16) and 4.7e-6 (f32), the planted faults
 # 0.16-0.22 in both
-LM_FULL_CHECK_RMS = {"bfloat16": 0.05, "float32": 1e-4}
+LM_FULL_CHECK_RMS = {"logits": {"bfloat16": 0.05, "float32": 1e-4}}
+# moonshot: the logits' limits as gemma2's, and the same ratio for the
+# position-t token's MoE layer outputs, the median over layers (see
+# phase_lm_checks)
+MOE_FULL_CHECK_RMS = {"logits": {"bfloat16": 0.05, "float32": 1e-4},
+                      "moe_layers": {"bfloat16": 0.05, "float32": 1e-4}}
+# planted faults a bf16 check may miss: on moonshot's random weights the
+# residual stream is the token's own embedding plus small updates, so a
+# decode at the wrong position moved its bf16 readings by 0.0073 (logits)
+# and 0.0124 (MoE layers) against 0.0062 and 0.0096 for the sound pair
+# (H100, run 1 of PR 25); its f32 pair must catch it
+BF16_BLIND = {"moonshot-v1-16b-a3b": ("position_minus_1",)}
+# the largest router margin (k-th minus (k+1)-th probability) at which a
+# token may take other experts in the other run: bf16 rounding of the
+# router's input (SMOKE: as tests/test_torch_moe.py; full width: see
+# phase_lm_checks)
+MOE_ROUTE_TIE = {"smoke": 2 ** -10, "full": 2 ** -8}
 LM_SMOKE_TOL = {"float32": 2e-5, "bfloat16": 1.5e-2}
-
+LM_SMOKE_ARCHS = ("gemma2-9b", "qwen3-32b", "stablelm-12b")
+MOE_SMOKE_ARCHS = ("moonshot-v1-16b-a3b", "llama4-scout-17b-a16e")
 
 def _flash_err(got, want, what: str) -> float:
     """max |got - want|; raises unless they agree within the JAX kernel
@@ -655,7 +708,8 @@ def tc_build_check() -> dict:
     """The tensor-core kernel's library as built: HGMMA (wgmma) in its
     SASS (``cuobjdump --dump-sass``), and each instantiation's spill bytes
     and registers from the ``ptxas -v`` report. Fails without HGMMA or if
-    the LM path's instantiation (D = 256, 64-row kv tiles) spills."""
+    an LM path's instantiation spills or is missing: gemma2's (D = 256,
+    64-row kv tiles) and moonshot's (D = 128, 128-row kv tiles)."""
     import re
     import subprocess
     from repro_torch.kernels import _build
@@ -668,10 +722,12 @@ def tc_build_check() -> dict:
         m = re.search(r"flash_tc_kernelILi(\d+)ELi(\d+)", fn)
         if m:
             out["instantiations"][f"D{m[1]}_BN{m[2]}"] = props
-    path = out["instantiations"].get("D256_BN64", {})
-    if out["hgmma"] == 0 or path.get("spill_bytes") != 0:
-        raise AssertionError(f"flash_attention_tc: no HGMMA in the SASS or "
-                             f"the D = 256 instantiation spills: {out}")
+    if out["hgmma"] == 0 or any(
+            out["instantiations"].get(k, {}).get("spill_bytes") != 0
+            for k in ("D256_BN64", "D128_BN128")):
+        raise AssertionError(f"flash_attention_tc: no HGMMA in the SASS, or "
+                             f"the D = 256 or D = 128 instantiation is "
+                             f"missing or spills: {out}")
     return out
 
 
@@ -723,81 +779,213 @@ def simt_build_check() -> dict:
     return out
 
 
-def phase_lm(dev, card, rec) -> tuple:
-    """The LM serving path at gemma2-9b's full width and depth: ``launch.
-    serve --mode lm`` (4 requests of 8192 tokens, 16 generated), then
-    ``DecodeScheduler`` with 2 slots serving 3 ragged requests. Launch
-    counts are zeroed before and read after both. Returns (report,
-    launches, cfg, params)."""
+class RouteRecorder:
+    """Wraps the model's MoE layer (``transformer.moe_ffn``) while active
+    (``with``): per call, in call order, its tokens ``T``, the
+    assignments ``dropped`` past capacity, each token's experts (in
+    top-k ``order`` and as a sorted set) and its router ``margin`` (k-th
+    minus (k+1)-th probability), all from the layer's own ``moe.route`` on
+    its input, and the layer's output for the call's last token
+    (``out_last``). ``force``: another run's calls; each call then takes
+    that run's experts (``order``) with gates from its own probabilities,
+    so two runs compare on the same discrete routing while each records
+    its own choice. Dense models make no such call."""
+
+    def __init__(self, force=None):
+        self.calls = []
+        self._force = force
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe, transformer
+        self._orig = orig = transformer.moe_ffn
+        self._route = route = moe.route
+
+        def recorded(params, x, cfg, cdt):
+            k, E = cfg.top_k, cfg.n_experts
+            T = x.shape[0] * x.shape[1]
+            probs, _, experts = route(params["router"], x.reshape(T, -1), k)
+            C = moe.capacity(T, k, E, cfg.capacity_factor)
+            load = moe.expert_load(experts.reshape(-1), E)
+            top = torch.topk(probs, k + 1, dim=-1).values
+            call = {"T": T, "k": k,
+                    "dropped": (load - C).clamp(min=0).sum(),
+                    "order": experts,
+                    "experts": torch.sort(experts, dim=-1).values,
+                    "margin": top[:, k - 1] - top[:, k]}
+            self.calls.append(call)
+            out = orig(params, x, cfg, cdt)
+            call["out_last"] = out[0].reshape(T, -1)[-1]
+            return out
+
+        def forced(router, tokens, top_k):
+            probs, _, _ = route(router, tokens, top_k)
+            experts = self._force[len(self.calls) - 1]["order"].to(
+                probs.device)
+            gates = torch.gather(probs, -1, experts)
+            return probs, gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                              min=1e-9), experts
+        transformer.moe_ffn = recorded
+        if self._force is not None:
+            moe.route = forced
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe, transformer
+        transformer.moe_ffn = self._orig
+        moe.route = self._route
+        return False
+
+    def drop_share(self, calls: int) -> float:
+        """Dropped over routed assignments in the first ``calls`` calls."""
+        c = self.calls[:calls]
+        return float(sum(float(x["dropped"]) for x in c)) \
+            / sum(x["T"] * x["k"] for x in c)
+
+
+def route_flips(want: list, got: list, tie: float, last: bool = False,
+                first: bool = False) -> list:
+    """The MoE calls (index, and the largest margin among the tokens that
+    differ) at which some token's experts differ between two runs'
+    ``RouteRecorder.calls``. Every token that differs must be a near-tie
+    in ``want``: a margin within ``tie``, else it raises. ``last``: compare
+    only each call's last token (a prefill over t + 1 tokens against one
+    decode step at t); ``first``: stop at the first call that differs
+    (the calls after it see other inputs)."""
+    if len(want) != len(got):
+        raise AssertionError(f"{len(want)} MoE calls against {len(got)}")
+    out = []
+    for i, (w, g) in enumerate(zip(want, got)):
+        we, ge, m = w["experts"], g["experts"], w["margin"]
+        if last:
+            we, ge, m = we[-1:], ge[-1:], m[-1:]
+        diff = (we.cpu() != ge.cpu()).any(-1)
+        if bool(diff.any()):
+            worst = float(m.cpu()[diff].max())
+            if worst > tie:
+                raise AssertionError(
+                    f"MoE call {i}: a token took other experts at a router "
+                    f"margin of {worst} (> {tie}): not a near-tie")
+            out.append((i, worst))
+            if first:
+                break
+    return out
+
+
+def lm_gates(tag: str, cfg, gen_launches: int, launches: dict, toks,
+             requests: int, gen: int, done: list, n_sched: int,
+             peak_gb, card_gb) -> None:
+    """An LM serving phase's gates: the tensor-core flash kernel launched
+    once per layer in generate's prefill and once per layer per admitted
+    request in the scheduler's, the SIMT kernel never; generate's tokens
+    of shape (requests, gen) inside the vocabulary; every scheduled
+    request finished with its ``gen`` tokens; the peak device memory under
+    the card's."""
+    bad = []
+    L = cfg.n_layers
+    if gen_launches != L:
+        bad.append(f"generate's prefill launched the tensor-core flash "
+                   f"kernel {gen_launches} times, not once per layer ({L})")
+    tc = launches["flash_attention_tc"]
+    if tc - gen_launches != L * n_sched:
+        bad.append(f"the scheduler's prefills launched the tensor-core "
+                   f"flash kernel {tc - gen_launches} times, not {L} per "
+                   f"admitted request")
+    if launches["flash_attention"]:
+        bad.append(f"the bf16 LM path launched the SIMT flash kernel "
+                   f"{launches['flash_attention']} times")
+    if tuple(toks.shape) != (requests, gen) \
+            or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        bad.append(f"generate returned malformed tokens {toks}")
+    if sorted(r.rid for r in done) != list(range(n_sched)) \
+            or any(len(r.generated) != gen for r in done):
+        bad.append("the scheduler did not finish every request with its "
+                   "tokens")
+    if not peak_gb < card_gb:
+        bad.append(f"peak device memory {peak_gb} GB is not under the "
+                   f"card's {card_gb} GB")
+    if bad:
+        raise AssertionError(f"[{tag}] gates: " + "; ".join(bad))
+
+
+def phase_lm(dev, card, rec, argv=LM_ARGV, sched_prompts=SCHED_PROMPTS,
+             tag: str = "lm") -> tuple:
+    """An LM serving path at full width and depth: ``launch.serve --mode
+    lm`` with ``argv`` (gemma2-9b: fp32 weights, 4 requests of 8192
+    tokens; moonshot: bf16 weights, 4 of 4096; 16 generated), then
+    ``DecodeScheduler`` with 2 slots serving ``sched_prompts``. Launch
+    counts are zeroed before and read after both; an MoE model's routing
+    is recorded (``RouteRecorder``) for the share of generate's prefill
+    assignments dropped past capacity. Gates: ``lm_gates``. Returns
+    (report, launches, cfg, params)."""
     import numpy as np
     import torch
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
     from repro_torch.serving.scheduler import DecodeScheduler, Request
-    torch.cuda.reset_peak_memory_stats(dev)
-    with rec:
+    cuda = dev.type == "cuda"
+    routes = RouteRecorder()
+    with rec, routes:
         _build.reset_launches()
-        out = serve.main([*LM_ARGV, "--device", str(dev)])
+        out = serve.main([*argv, "--device", str(dev)])
         gen_launches = _build.LAUNCHES["flash_attention_tc"]
         cfg, params, toks = out["cfg"], out["params"], out["tokens"]
         rep = dict(out["report"])
-        rep["generate_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        rep["generate_peak_gb"] = rep.pop("peak_gb")
         del out
         rng = np.random.default_rng(1)
         reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, n),
                         max_new=SCHED_GEN)
-                for i, n in enumerate(SCHED_PROMPTS)]
+                for i, n in enumerate(sched_prompts)]
         t0 = time.perf_counter()
         sched = DecodeScheduler(cfg=cfg, params=params, slots=2,
-                                max_len=max(SCHED_PROMPTS) + 2 * SCHED_GEN,
+                                max_len=max(sched_prompts) + 2 * SCHED_GEN,
                                 device=dev)
         for r in reqs:
             sched.submit(r)
         done = sched.run_to_completion()
-        torch.cuda.synchronize(dev)
+        _sync(dev)
         rep["sched_s"] = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
     del sched
-    rep["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    rep["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+                      else None)
+    card_gb = (torch.cuda.get_device_properties(dev).total_memory / 1e9
+               if cuda else float("inf"))
     rep["sched_tokens"] = sum(len(r.generated) for r in done)
     rep["sched_tok_per_s"] = rep["sched_tokens"] / rep["sched_s"]
-    n_layers = cfg.n_layers
-    if gen_launches != n_layers:
-        raise AssertionError(f"generate's prefill launched the tensor-core "
-                             f"flash kernel {gen_launches} times, not once "
-                             f"per layer ({n_layers})")
-    tc = launches["flash_attention_tc"]
-    if tc != n_layers * (1 + len(SCHED_PROMPTS)):
-        raise AssertionError(f"the scheduler's prefills launched the "
-                             f"tensor-core flash kernel {tc - n_layers} "
-                             f"times, not {n_layers} per admitted request")
-    if launches["flash_attention"]:
-        raise AssertionError(f"the bf16 LM path launched the SIMT flash "
-                             f"kernel {launches['flash_attention']} times")
-    _require(launches, ("flash_attention_tc",), "the LM path")
-    if toks.shape != (4, 16) or not bool(((toks >= 0)
-                                          & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"generate returned malformed tokens {toks}")
-    if sorted(r.rid for r in done) != list(range(len(SCHED_PROMPTS))) \
-            or any(len(r.generated) != SCHED_GEN for r in done):
-        raise AssertionError("the scheduler did not finish every request "
-                             "with its tokens")
     rep["flash_launches_per_prefill"] = gen_launches
-    print(f"[lm] on {card}: {cfg.name} at full width ({cfg.n_layers} "
-          f"layers, d_model {cfg.d_model}, {cfg.param_count():,} fp32 "
-          f"params, random weights from seed 0, init {rep['init_s']:.2f}s):"
-          f" {rep['requests']} requests x {rep['prompt_len']}-token prompts,"
-          f" {rep['gen']} tokens each: prefill "
-          f"{rep['prefill_s']:.3f}s, decode {rep['decode_ms_per_step']:.2f} "
-          f"ms/step, {rep['tok_per_s']:.2f} tok/s; peak memory "
-          f"{rep['generate_peak_gb']:.2f} GB; flash launches per prefill "
-          f"{gen_launches}", flush=True)
-    print(f"[lm] DecodeScheduler, 2 slots, requests of {SCHED_PROMPTS} "
+    rep["param_count"] = cfg.param_count()
+    rep["active_param_count"] = cfg.active_param_count()
+    rep["drop_share"] = routes.drop_share(cfg.n_layers) if cfg.moe else None
+    lm_gates(tag, cfg, gen_launches, launches, toks, rep["requests"],
+             rep["gen"], done, len(sched_prompts),
+             rep["peak_gb"] if cuda else 0.0, card_gb)
+    gb = lambda v: "not measured" if v is None else f"{v:.2f} GB"  # noqa
+    moe = (f", {rep['active_param_count']:,} active a token" if cfg.moe
+           else "")
+    drops = (f"; {rep['drop_share']:.5f} of the prefill's assignments "
+             f"dropped past capacity (factor {cfg.capacity_factor})"
+             if cfg.moe else "")
+    print(f"[{tag}] on {card}: {cfg.name} at full width ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {rep['param_count']:,} params"
+          f"{moe}, {cfg.param_dtype} weights, random from seed 0, init "
+          f"{rep['init_s']:.2f}s): {rep['requests']} requests x "
+          f"{rep['prompt_len']}-token prompts, {rep['gen']} tokens each: "
+          f"prefill {rep['prefill_s']:.3f}s, decode "
+          f"{rep['decode_ms_per_step']:.2f} ms/step, {rep['tok_per_s']:.2f} "
+          f"tok/s{drops}; peak memory {gb(rep['generate_peak_gb'])}; flash "
+          f"launches per prefill {gen_launches}", flush=True)
+    print(f"[{tag}] DecodeScheduler, 2 slots, requests of {sched_prompts} "
           f"tokens x {SCHED_GEN}: {rep['sched_tokens']} tokens in "
           f"{rep['sched_s']:.2f}s ({rep['sched_tok_per_s']:.2f} tok/s, "
-          f"admission prefills included); peak memory {rep['peak_gb']:.2f} "
-          f"GB; launches {launches}", flush=True)
+          f"admission prefills included); peak memory {gb(rep['peak_gb'])}; "
+          f"launches {launches}", flush=True)
     return rep, launches, cfg, params
+
+
+def _prompt_len(argv) -> int:
+    return int(argv[argv.index("--prompt-len") + 1])
 
 
 def _rms(x) -> float:
@@ -805,31 +993,71 @@ def _rms(x) -> float:
     return float(torch.sqrt(torch.mean(x.to(torch.float64) ** 2)))
 
 
-def phase_lm_checks(dev, cfg, params, rec) -> dict:
-    """Three checks of the LM path:
+def _moe_ratio(want: list, got: list) -> float:
+    """The median over MoE layers of rms(got - want) / rms(want) of the
+    last token's layer outputs in two runs' ``RouteRecorder.calls``."""
+    return statistics.median(
+        _rms(g["out_last"].float() - w["out_last"].float())
+        / _rms(w["out_last"]) for w, g in zip(want, got))
+
+
+def _rolled_router(params):
+    """``params`` with each layer's router columns rolled by one: every
+    assignment goes to expert (e + 1) mod E with its own gate."""
+    import torch
+    ffn = params["layers"]["ffn"]
+    return {**params, "layers": {**params["layers"], "ffn": {
+        **ffn, "router": torch.roll(ffn["router"], 1, dims=-1)}}}
+
+
+def phase_lm_checks(dev, cfg, params, rec, prompt_len: int,
+                    smoke_archs=LM_SMOKE_ARCHS, profile: bool = False) -> dict:
+    """Three checks of an LM path:
     1. the kernels against their plain version on the q, k, v the prefill
-       gave one local and one global layer, at one batch row (the plain
-       version holds H * S^2 f32 scores): as they came, in bf16 (the
-       tensor-core kernel), and cast to f32 (the SIMT kernel), where only
-       the order of summation differs (FLASH_TOL);
+       gave a layer of each window (gemma2: one local and one global;
+       moonshot: D = 128, global), at one batch row (the plain version
+       holds H * S^2 f32 scores): as they came, in bf16 (the tensor-core
+       kernel), and cast to f32 (the SIMT kernel), where only the order of
+       summation differs (FLASH_TOL);
     2. at full width, the logits of a prefill over t + 1 tokens against a
-       prefill over t tokens then one ``decode_step`` (t = 4500, past the
-       window), at the config's bf16 and at f32 compute. In bf16 the two
-       paths round at other points (other matmul shapes and orders of
-       summation) across 42 layers; in f32 only the order of summation
-       differs. The two f32 prefills are the f32 LM path's counted run
-       (launch counts zeroed before, read after, ``rec`` recording): each
-       of their 84 attention calls must take the SIMT kernel. Their
-       difference must stay within LM_FULL_CHECK_RMS of the logits' RMS
-       and their argmax agree unless the top-2 margin is within twice the
-       largest difference. Two planted faults, read on the same cache each
-       run, must exceed that limit: decode at ``lengths - 1`` (a wrong
-       position and cache slot) and decode with the window off (a wrong
-       mask);
-    3. at SMOKE width, gemma2, qwen3 and stablelm with the same weights on
-       the card and on the CPU: prefill logits and 3 teacher-forced decode
-       steps within LM_SMOKE_TOL (the CPU tests' tolerances against the
-       JAX package), in f32 and at the configs' bf16."""
+       prefill over t tokens then one ``decode_step`` (t = 4500), at the
+       config's bf16 and at f32 compute. An MoE model runs at a dropless
+       capacity factor, E / k (capacity >= T: the served 1.25 drops by
+       each batch's own capacity, which differs between t + 1 and t
+       tokens). In bf16 the two paths round at other points (other matmul
+       shapes and orders of summation) across every layer; in f32 only
+       the order of summation differs. The two f32 prefills are the f32
+       LM path's counted run (launch counts zeroed before, read after,
+       ``rec`` recording): each of their attention calls must take the
+       SIMT kernel. Their difference must stay within LM_FULL_CHECK_RMS
+       (MoE: MOE_FULL_CHECK_RMS) of the logits' RMS and their argmax agree
+       unless the top-2 margin is within twice the largest difference.
+       An MoE model is also held on its MoE layers' outputs for the
+       position-t token (``RouteRecorder``): the median over layers of
+       their relative RMS difference within MOE_FULL_CHECK_RMS. The
+       reference's fan-in rule (1/sqrt(E * d) for a 3-D expert leaf)
+       makes random experts' outputs small beside attention's, so the
+       logits alone barely see the experts. Its routing may differ only
+       at near-ties: where the token's experts differ, the first such
+       layer's margin in the t + 1 prefill must be within
+       MOE_ROUTE_TIE["full"] (``route_flips``; the median takes a few
+       such layers). Planted faults, read on the same cache each run,
+       must each exceed a limit (in bf16, those of BF16_BLIND excepted):
+       decode at ``lengths - 1`` (a wrong position and cache slot); with
+       a window, decode with the window off (a wrong mask); with MoE,
+       decode with the router's columns rolled by one (each assignment
+       sent to expert (e + 1) mod E);
+    3. at SMOKE width, ``smoke_archs`` with the same weights on the card
+       and on the CPU (llama4 with patches): prefill logits and 3
+       teacher-forced decode steps within LM_SMOKE_TOL (the CPU tests'
+       tolerances against the JAX package), in f32 and at bf16. An MoE
+       model's card run takes the CPU run's experts (``RouteRecorder``'s
+       ``force``), as ``tests/test_torch_moe.py`` does against the JAX
+       package: where its own choice differs, the CPU margin must be
+       within MOE_ROUTE_TIE["smoke"] (a near-tie that bf16 rounding
+       flips), and every step is compared.
+    ``profile``: where the time of a batch-1 decode step and prefill goes
+    (``_device_profile``)."""
     import contextlib
     import dataclasses
     import numpy as np
@@ -841,9 +1069,9 @@ def phase_lm_checks(dev, cfg, params, rec) -> dict:
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.models import transformer as TF
     out = {}
-    S = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
-    for window in (cfg.sliding_window, 0):
-        a, kw = rec.args["flash_attention_tc"][(4, S, window)]
+    for window in dict.fromkeys(TF.layer_windows(cfg)):
+        a, kw = rec.args["flash_attention_tc"][(4, prompt_len, window,
+                                                cfg.head_dim)]
         for dtype in (torch.bfloat16, torch.float32):
             row = [t[:1].to(dtype) for t in a]
             name = str(dtype).removeprefix("torch.")
@@ -859,13 +1087,19 @@ def phase_lm_checks(dev, cfg, params, rec) -> dict:
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, t + 1))
                             ).to(dev)
     lengths = torch.tensor([t], device=dev)
-    no_window = dataclasses.replace(cfg, sliding_window=0)
+    full = cfg
+    if cfg.moe:
+        full = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                   / cfg.top_k)
+    limits = MOE_FULL_CHECK_RMS if cfg.moe else LM_FULL_CHECK_RMS
     for dtype in ("bfloat16", "float32"):
-        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        c = dataclasses.replace(full, compute_dtype=dtype)
         counted = dtype == "float32"
+        rw = RouteRecorder()
         with rec if counted else contextlib.nullcontext():
             _build.reset_launches()
-            _, want = TF.prefill(params, toks, c)
+            with rw:
+                want = TF.prefill(params, toks, c)[1]
             caches, _ = TF.prefill(params, toks[:, :t], c, pad_to=t + 1)
             launches = dict(_build.LAUNCHES)
         if counted:
@@ -875,16 +1109,25 @@ def phase_lm_checks(dev, cfg, params, rec) -> dict:
                 raise AssertionError(f"the f32 prefills' attention took "
                                      f"other kernels than the SIMT one "
                                      f"once per layer: {launches}")
-        # sound first, then the window off (both write slot t alike), then
-        # the wrong slot t - 1 last: the three share one cache
-        _, got = TF.decode_step(params, caches, lengths, toks[:, t], c)
-        planted = {
-            "window_off": TF.decode_step(
-                params, caches, lengths, toks[:, t],
-                dataclasses.replace(no_window, compute_dtype=dtype))[1],
-            "position_minus_1": TF.decode_step(
-                params, caches, lengths - 1, toks[:, t], c)[1]}
-        if dtype == cfg.compute_dtype:
+        # sound first, then the faults that write slot t (the window off
+        # writes it alike; the rolled router from layer 1 on, which only
+        # slot t's readers see), then the wrong slot t - 1 last: they all
+        # share one cache
+        runs = {"sound": (params, lengths, c)}
+        if cfg.sliding_window:
+            runs["window_off"] = (params, lengths,
+                                  dataclasses.replace(c, sliding_window=0))
+        if cfg.moe:
+            runs["experts_rolled"] = (_rolled_router(params), lengths, c)
+        runs["position_minus_1"] = (params, lengths - 1, c)
+        logits, routes = {}, {}
+        for name, (p, ln, cc) in runs.items():
+            with RouteRecorder() as rr:
+                logits[name] = TF.decode_step(p, caches, ln, toks[:, t],
+                                              cc)[1]
+            routes[name] = rr.calls
+        got = logits.pop("sound")
+        if profile and dtype == cfg.compute_dtype:
             # where the LM's time goes, at batch 1 (device-side events):
             # one decode step at length t (it rewrites slot t) and one
             # t-token prefill
@@ -901,30 +1144,50 @@ def phase_lm_checks(dev, cfg, params, rec) -> dict:
         diff = (got - want).abs()
         top2 = torch.topk(want[0], 2).values
         chk = {"t": t, "max_abs_diff": float(diff.max()),
-                "rms_ratio": _rms(got - want) / _rms(want),
-                "logits_rms": _rms(want), "argmax_equal":
-                    bool(got.argmax(-1) == want.argmax(-1)),
-                "top2_margin": float(top2[0] - top2[1]),
-                "limit": LM_FULL_CHECK_RMS[dtype],
-                "planted_rms_ratio": {k: _rms(v - want) / _rms(want)
-                                      for k, v in planted.items()}}
+               "rms_ratio": _rms(got - want) / _rms(want),
+               "logits_rms": _rms(want), "argmax_equal":
+                   bool(got.argmax(-1) == want.argmax(-1)),
+               "top2_margin": float(top2[0] - top2[1]),
+               "limit": limits["logits"][dtype],
+               "planted_rms_ratio": {k: _rms(v - want) / _rms(want)
+                                     for k, v in logits.items()}}
+        caught = {k: v > chk["limit"]
+                  for k, v in chk["planted_rms_ratio"].items()}
+        ok = chk["rms_ratio"] <= chk["limit"]
+        if cfg.moe:
+            chk.update(
+                capacity_factor=c.capacity_factor,
+                dropped=sum(int(x["dropped"]) for x in rw.calls),
+                min_route_margin=min(float(x["margin"][-1])
+                                     for x in rw.calls),
+                route_flip=route_flips(rw.calls, routes["sound"],
+                                       MOE_ROUTE_TIE["full"], last=True,
+                                       first=True),
+                moe_limit=limits["moe_layers"][dtype],
+                moe_rms_ratio=_moe_ratio(rw.calls, routes.pop("sound")),
+                planted_moe_rms_ratio={k: _moe_ratio(rw.calls, v)
+                                       for k, v in routes.items()})
+            ok = ok and chk["moe_rms_ratio"] <= chk["moe_limit"] \
+                and chk["dropped"] == 0
+            for k, v in chk["planted_moe_rms_ratio"].items():
+                caught[k] = caught[k] or v > chk["moe_limit"]
         out[f"full_decode_vs_prefill_{dtype}"] = chk
-        if not (chk["rms_ratio"] <= chk["limit"]
-                and bool(torch.isfinite(got).all())):
+        if not (ok and bool(torch.isfinite(got).all())):
             raise AssertionError(f"full width, {dtype}: prefill(t+1) vs "
                                  f"prefill(t) + decode_step: {chk}")
         if not chk["argmax_equal"] \
                 and chk["top2_margin"] > 2 * chk["max_abs_diff"]:
             raise AssertionError(f"full width, {dtype}: decode's argmax "
                                  f"differs at a clear margin")
-        if min(chk["planted_rms_ratio"].values()) <= chk["limit"]:
+        blind = BF16_BLIND.get(cfg.name, ()) if dtype == "bfloat16" else ()
+        if not all(v for k, v in caught.items() if k not in blind):
             raise AssertionError(f"full width, {dtype}: a planted fault "
-                                 f"stays within the limit: {chk}")
-        del got, want, planted
+                                 f"stays within the limits: {chk}")
+        del got, want, logits
         torch.cuda.empty_cache()
 
     smoke = {}
-    for arch in ("gemma2-9b", "qwen3-32b", "stablelm-12b"):
+    for arch in smoke_archs:
         for dtype in ("float32", "bfloat16"):
             c = dataclasses.replace(get_arch(arch).smoke,
                                     compute_dtype=dtype)
@@ -932,21 +1195,35 @@ def phase_lm_checks(dev, cfg, params, rec) -> dict:
             prompts = np.random.default_rng(1).integers(
                 1, c.vocab_size, (2, 100))
             prompts[0, 96:] = 0
-            res = []
+            patches = None
+            if c.fused_patches:
+                patches = torch.from_numpy(np.random.default_rng(2).normal(
+                    size=(2, c.fused_patches, c.patch_dim)
+                ).astype(np.float32))
+            res, routes = [], [None]
             for d, p in (("cpu", p_cpu),
                          (dev, lm_params_from_repro(p_cpu, dev))):
                 pr = torch.from_numpy(prompts).to(d)
-                caches, lg = TF.prefill(p, pr, c, pad_to=104)
-                lengths = (pr > 0).sum(1)
-                steps = [lg.cpu()]
-                for i in range(3):
-                    last = torch.from_numpy(prompts[:, i + 1]).to(d)
-                    caches, lg = TF.decode_step(p, caches, lengths + i, last,
-                                                c)
-                    steps.append(lg.cpu())
+                with RouteRecorder(force=routes[-1]) as rr:
+                    caches, lg = TF.prefill(
+                        p, pr, c, pad_to=104,
+                        patches=None if patches is None else patches.to(d))
+                    lengths = (pr > 0).sum(1)
+                    steps = [lg.cpu()]
+                    for i in range(3):
+                        last = torch.from_numpy(prompts[:, i + 1]).to(d)
+                        caches, lg = TF.decode_step(p, caches, lengths + i,
+                                                    last, c)
+                        steps.append(lg.cpu())
                 res.append(torch.stack(steps))
+                routes.append(rr.calls)
             err = float((res[0] - res[1]).abs().max())
             smoke[f"{arch}/{dtype}"] = err
+            if c.moe:
+                flips = route_flips(routes[1], routes[2],
+                                    MOE_ROUTE_TIE["smoke"])
+                if flips:
+                    smoke[f"{arch}/{dtype}/route_flips"] = flips
             if not err <= LM_SMOKE_TOL[dtype]:
                 raise AssertionError(f"smoke {arch} {dtype}: card logits "
                                      f"differ from the CPU's by {err}")
@@ -1064,18 +1341,18 @@ def phase_checks(phases, dev, batch0, k: int = 10) -> dict:
 def _leading(name: str, args, kwargs=None):
     """A kernel call's shape key S: blocks (the compact op's first argument
     is the whole rows array; its blocks are its offsets); for flash
-    attention (batch, q length, window)."""
+    attention (batch, q length, window, head dim)."""
     if name.startswith("flash_attention"):
         return (int(args[0].shape[0]), int(args[0].shape[1]),
-                int(kwargs.get("window", 0)))
+                int(kwargs.get("window", 0)), int(args[0].shape[3]))
     return int(args[1 if name == "bm25_blocks_compact" else 0].shape[0])
 
 
 class ShapeRecorder:
     """Wraps the kernel ops the main paths call, only while a path runs
     (``with rec:``, once per counted run): counts each op's calls by their
-    shape key S (blocks; for flash attention batch, length and window) and
-    keeps a copy of the first call's arguments at each S, so
+    shape key S (blocks; for flash attention batch, length, window and
+    head dim) and keeps a copy of the first call's arguments at each S, so
     ``phase_timing`` can time every kernel on the inputs the paths gave
     it. Flash attention's calls go under the kernel ``ops.route`` picks
     for them. The launch counts stay the wrappers' own. Calls come from
@@ -1153,7 +1430,7 @@ def _served_batches(done, slots: int):
 
 def phase_durable(args, dev, card, rec, del_ids, upd_ids,
                   k: int = 10) -> tuple:
-    """The durable path (phase 9 of the module docstring). Returns its
+    """The durable path (phase 11 of the module docstring). Returns its
     report, the launch counts of its two counted runs, summed, and its
     corpus batches (the later phases index the same corpus)."""
     import dataclasses
@@ -1351,7 +1628,7 @@ def phase_durable(args, dev, card, rec, del_ids, upd_ids,
 
 
 ENVELOPE_PAIRS = (("nas", "ssd"), ("ssd", "ssd"))   # isolated, shared
-ENVELOPE_BATCHES = 4                # of --batch-docs: 2^16 docs a pair
+ENVELOPE_BATCHES = 1                # of --batch-docs: 2^14 docs a pair
 STEADY_SEED_BATCHES = 4             # indexed and refreshed before serving
 # churn ticks, one batch each. Not cut: the one merge the gates need takes
 # the 10 flushes of all 40 batches (a flush every 4 batches at CONFIG's
@@ -1380,10 +1657,10 @@ EXAMPLES = ("torch_quickstart.py", "torch_index_corpus.py",
             "torch_serve_retrieval.py", "torch_serve_fleet.py")
 FLEET_SHARDS = 2                    # range shards, each with ...
 FLEET_REPLICAS = 2                  # ... this many replicas
-FLEET_BATCHES = 2                   # of --batch-docs a shard (2^15 docs) ...
+FLEET_BATCHES = 1                   # of --batch-docs a shard (2^14 docs) ...
 FLEET_DELETES = 8                   # ... then one more batch and 8 deletes
 FLEET_RANGE = 1 << 24               # shard si owns ids [si, si + 1) * this
-FLEET_SERVE_BATCHES = 16            # closed-loop batches of 32 queries
+FLEET_SERVE_BATCHES = 8             # closed-loop batches of 32 queries
 FLEET_DEGRADED_BATCHES = 8          # served while a replica is quarantined
 FLEET_HEALED_BATCHES = 2            # served after each heal
 FLEET_TIMEOUT_S = 600.0             # the longest a replica process may take
@@ -1973,7 +2250,7 @@ def _rot(directory, name: str) -> None:
 
 
 def phase_fleet(args, dev, card, rec, made=(), k: int = 10) -> tuple:
-    """The replicated fleet on the card (phase 12 of the module
+    """The replicated fleet on the card (phase 14 of the module
     docstring). Counted run: FLEET_SHARDS range-shard writers (full
     CONFIG, a ``CommitPublisher`` each) index FLEET_BATCHES batches and
     commit; shard 0's replicas are ``ReplicaSyncer``s in this process,
@@ -2244,7 +2521,7 @@ def _fleet_run(dev, card, rec, batches, qbatches, tmp, rep, k):
 
 MESH_WORLD = 4                      # [mesh]'s ranks, all on this card, as
 MESH_SHAPE = {"data": 2, "model": 2}   # the JAX debug mesh lays them out
-MESH_STEPS = 5                      # timed steps a payload, after the first
+MESH_STEPS = 3                      # timed steps a payload, after the first
 MESH_TIMEOUT_S = 300.0              # the longest the world may take
 MESH_MERGE = (4, 32, 10)            # (shards, queries, k) of the merge check
 MESH_FIELDS = ("packed_docs", "bw_docs", "packed_pos", "bw_pos")
@@ -2678,7 +2955,8 @@ def phase_timing(rec, launches, err, card: str, remote=None) -> tuple:
     more (exactly; flash attention within its tolerance), then timed: the
     kernel by its device time (``_device_ms``, median of 21 launches),
     the plain version on the same arguments by events around the call
-    (median of 3; its host launch time included, as its users pay it;
+    (one call after a warm-up; its host launch time included, as its
+    users pay it;
     flash attention's one batch row after the other, since it holds
     H * S^2 f32 scores per row) and, for flash attention, the SDPA
     yardstick on the same arguments (``_flash_yardstick``). A kernel's
@@ -2751,7 +3029,7 @@ def phase_timing(rec, launches, err, card: str, remote=None) -> tuple:
             t_ops = ops / peak * 1e3
             row = {"S": S, "launches": weights[S],
                    "ms": _device_ms(lambda: kern(*a, **kw)),
-                   "plain_ms": _median_ms(lambda: plain(*a, **kw), n=3,
+                   "plain_ms": _median_ms(lambda: plain(*a, **kw), n=1,
                                           warm=1),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -2802,7 +3080,6 @@ def phase_timing(rec, launches, err, card: str, remote=None) -> tuple:
                  for r in rows if name != "pack" or r["S"] >= 1 << 15]
         print(f"[timing] on {card}: {name} per S (launches: ms / bound): "
               + ", ".join(cells), flush=True)
-    S = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
     for name in ("flash_attention_tc", "flash_attention"):
         fl = next(e for e in line if e["name"] == name)
         print(f"[timing] on {card}: {name}: {fl['ms']:.3f} ms per launch "
@@ -2813,15 +3090,17 @@ def phase_timing(rec, launches, err, card: str, remote=None) -> tuple:
               f"launches, on the same inputs)", flush=True)
         for r in per_shape[name]:
             old = f", SIMT {r['simt_ms']:.3f}" if "simt_ms" in r else ""
-            print(f"[timing] {name} at (B, S, window) = {r['S']} x"
+            print(f"[timing] {name} at (B, S, window, D) = {r['S']} x"
                   f"{r['launches']}: {r['ms']:.3f} ms (bound "
                   f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.3f}{old}; at "
                   f"softcap 0 the kernel {r['kernel_softcap0_ms']:.3f} vs "
                   f"SDPA {r['library_ms']:.3f})", flush=True)
     rows = {r["S"]: r for r in per_shape["flash_attention_tc"]}
-    if (4, S, 0) not in rows:
-        raise AssertionError(f"no tensor-core launch at the prefill's "
-                             f"B=4 S={S}")
+    for argv, D in ((LM_ARGV, 256), (MOE_ARGV, 128)):
+        S = _prompt_len(argv)
+        if (4, S, 0, D) not in rows:
+            raise AssertionError(f"no tensor-core launch at the prefill's "
+                                 f"B=4 S={S} D={D}")
     return line, per_shape
 
 
@@ -3040,11 +3319,12 @@ def main(argv=None) -> int:
     lm, lm_launches, cfg, params = phase_lm(dev, card, rec)
     lm["lm_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lm["checks"] = phase_lm_checks(dev, cfg, params, rec)
+    lm["checks"] = phase_lm_checks(dev, cfg, params, rec,
+                                   _prompt_len(LM_ARGV), profile=True)
+    lm["checks_s"] = time.perf_counter() - t0
     checks_lm = {k: v for k, v in lm["checks"].items()
                  if not k.startswith("profile")}
-    print(f"[lm-checks] {checks_lm} ({time.perf_counter() - t0:.1f}s)",
-          flush=True)
+    print(f"[lm-checks] {checks_lm} ({lm['checks_s']:.1f}s)", flush=True)
     for name in ("decode", "prefill"):
         pr = lm["checks"][f"profile_{name}_b1"]
         print(f"[lm-profile] on {card}: one {name} at batch 1, length "
@@ -3052,6 +3332,23 @@ def main(argv=None) -> int:
               f"busy {pr['device_ms']:.2f} ms (share "
               f"{pr['device_busy_share'] or float('nan'):.3f}); top: "
               f"{pr['top_device_ops'][:4]}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the MoE LM at full width, alone on the card too (gemma2's 36.97 GB
+    # and its 55.4 GB do not fit together); freed before the retrieval
+    t0 = time.perf_counter()
+    moe, moe_launches, cfg, params = phase_lm(
+        dev, card, rec, MOE_ARGV, MOE_SCHED_PROMPTS, "moe")
+    moe["moe_s"] = time.perf_counter() - t0
+    print(f"[moe] ({moe['moe_s']:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    moe["checks"] = phase_lm_checks(dev, cfg, params, rec,
+                                    _prompt_len(MOE_ARGV), MOE_SMOKE_ARCHS)
+    moe["checks_s"] = time.perf_counter() - t0
+    print(f"[moe-checks] {moe['checks']} ({moe['checks_s']:.1f}s)",
+          flush=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3139,10 +3436,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    f32_launches = lm["checks"]["f32_launches"]
     launches = {n: launches[n] + d_launches[n] + lm_launches[n]
-                + f32_launches[n] + e_launches[n] + s_launches[n]
-                + f_launches[n] + m_launches[n] for n in launches}
+                + lm["checks"]["f32_launches"][n] + moe_launches[n]
+                + moe["checks"]["f32_launches"][n] + e_launches[n]
+                + s_launches[n] + f_launches[n] + m_launches[n]
+                for n in launches}
 
     t0 = time.perf_counter()
     children = list(fleet["launches_children"].values()) \
@@ -3160,12 +3458,15 @@ def main(argv=None) -> int:
         "tc_build": tc_build, "retrieval_build": retrieval_build,
         "simt_build": simt_build,
         "report": report, "checks": checks, "profile": prof,
-        "durable": durable, "lm": lm, "envelope": envelope,
+        "durable": durable, "lm": lm, "moe": moe, "envelope": envelope,
         "steady": steady, "fleet": fleet, "mesh": mesh,
         "examples": examples,
         "kernels": line, "kernel_shapes": per_shape,
         "total_s": time.perf_counter() - t_start}, indent=1, default=str))
-    print(f"[total] total_s {time.perf_counter() - t_start:.1f}", flush=True)
+    total_s = time.perf_counter() - t_start
+    print(f"[total] total_s {total_s:.1f}; the durable path "
+          f"{durable['durable_s']:.1f}s, ratio "
+          f"{total_s / durable['durable_s']:.3f}", flush=True)
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

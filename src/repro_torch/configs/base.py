@@ -89,8 +89,8 @@ class TransformerConfig:
 
     Feature flags cover the assigned archs: qk_norm (qwen3), logit softcaps +
     local/global alternation (gemma2), MoE top-k routing (moonshot, llama4),
-    early-fusion stub (llama4). The port serves the dense archs; ``moe`` and
-    ``fused_patches`` are kept so the fields match the JAX package's.
+    early-fusion stub (llama4). The port serves all of them on one
+    device; the fields match the JAX package's.
     """
 
     name: str
@@ -152,6 +152,18 @@ class TransformerConfig:
             ff += d * self.n_experts  # router
         else:
             ff = 3 * d * self.d_ff
+        norms = 2 * d * (2 if self.sandwich_norm else 1)
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return l * (attn + ff + norms) + emb + d
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared)."""
+        if not self.moe:
+            return self.param_count()
+        d, l = self.d_model, self.n_layers
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        ff = 3 * d * self.d_ff_expert * (self.top_k + self.n_shared_experts)
+        ff += d * self.n_experts
         norms = 2 * d * (2 if self.sandwich_norm else 1)
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return l * (attn + ff + norms) + emb + d

@@ -21,6 +21,10 @@ launcher's LM mode; the port keeps retrieval as its default mode).
   python -m repro_torch.launch.serve --mode lm --device cpu   # gemma2 smoke
   python -m repro_torch.launch.serve --mode lm --config full \\
       --prompt-len 8192 --gen 16                # gemma2-9b at full width
+  python -m repro_torch.launch.serve --mode lm --device cpu \\
+      --arch moonshot-v1-16b-a3b                # the MoE LM, SMOKE
+  python -m repro_torch.launch.serve --mode lm --config full \\
+      --arch moonshot-v1-16b-a3b --param-dtype bfloat16 --prompt-len 4096
 
 In retrieval mode, ``--config smoke`` is the SMOKE pipeline over the
 TINY corpus (the JAX
@@ -121,10 +125,16 @@ def generate(cfg, params, prompts, gen_tokens: int, mesh=None,
 def serve_lm(args):
     """Greedy generation for ``--requests`` random prompts on random
     weights, both drawn from seed 0 (the JAX launcher's fixed
-    ``PRNGKey(0)``). Returns a dict: cfg, params, tokens and report."""
+    ``PRNGKey(0)``). ``--param-dtype`` replaces the config's
+    ``param_dtype``. Returns a dict: cfg, params, tokens and report (with
+    the weights' dtype and, on CUDA, the peak device memory)."""
     device = resolve_device(args.device)
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.config == "smoke" else entry.config
+    if args.param_dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     gen = torch.Generator(device=device).manual_seed(0)
     t0 = time.perf_counter()
     params = TF.init_params(cfg, gen)
@@ -136,7 +146,10 @@ def serve_lm(args):
     stats = {}
     toks = generate(cfg, params, prompts, args.gen, stats=stats)
     dt = stats["prefill_s"] + stats["decode_s"]
+    peak_gb = (torch.cuda.max_memory_allocated(device) / 1e9
+               if device.type == "cuda" else None)
     report = dict(arch=cfg.name, device=str(device), init_s=init_s,
+                  param_dtype=cfg.param_dtype, peak_gb=peak_gb,
                   requests=args.requests, prompt_len=args.prompt_len,
                   gen=args.gen, tok_per_s=args.requests * args.gen / dt,
                   decode_ms_per_step=(stats["decode_s"] * 1e3
@@ -146,7 +159,9 @@ def serve_lm(args):
           f"{args.gen} tokens ({args.prompt_len}-token prompts) in "
           f"{dt:.2f}s ({report['tok_per_s']:.1f} tok/s; prefill "
           f"{stats['prefill_s']:.3f}s, decode "
-          f"{report['decode_ms_per_step']:.2f} ms/step)")
+          f"{report['decode_ms_per_step']:.2f} ms/step; {cfg.param_dtype} "
+          f"weights, peak device memory "
+          f"{'not measured' if peak_gb is None else f'{peak_gb:.2f} GB'})")
     print("sample generations:", toks[:2, :8].cpu().numpy())
     return dict(cfg=cfg, params=params, tokens=toks, report=report)
 
@@ -327,6 +342,10 @@ def build_parser():
                          "widths (lucene_envelope CONFIG, or --arch's)")
     ap.add_argument("--arch", default="gemma2-9b",
                     help="lm mode: the architecture (configs/registry.py)")
+    ap.add_argument("--param-dtype", default=None,
+                    choices=("float32", "bfloat16"),
+                    help="lm mode: the weights' dtype (default: the "
+                         "config's param_dtype)")
     ap.add_argument("--prompt-len", type=int, default=64,
                     help="lm mode: tokens per prompt")
     ap.add_argument("--gen", type=int, default=16,

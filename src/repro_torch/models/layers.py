@@ -37,15 +37,25 @@ def dt(name: str) -> torch.dtype:
 def normal_init(gen: torch.Generator, shape, dtype, stddev=None,
                 stack: int = 0):
     """N(0, stddev) in f32, cast to ``dtype``; ``stddev`` defaults to
-    1/sqrt(fan_in) of ``shape``. ``stack > 0`` draws ``stack`` such
-    tensors at once, stacked on a leading axis (one per layer)."""
+    1/sqrt(fan_in) of ``shape`` (the JAX rule: for a 3-D ``(E, d, ff)``
+    expert leaf, fan_in = E * d). ``stack > 0`` draws ``stack`` such
+    tensors, one at a time into a preallocated ``(stack, *shape)``
+    tensor of ``dtype`` (one per layer), so no f32 copy of the whole
+    stack exists at once."""
     if stddev is None:  # fan-in scaling
         fan_in = shape[0] if len(shape) <= 2 else math.prod(shape[:-1])
         stddev = 1.0 / math.sqrt(max(fan_in, 1))
-    full = (stack, *shape) if stack else tuple(shape)
-    x = torch.randn(full, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return x.mul_(stddev).to(dtype)
+
+    def draw():
+        x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return x.mul_(stddev).to(dtype)
+    if not stack:
+        return draw()
+    out = torch.empty((stack, *shape), dtype=dtype, device=gen.device)
+    for i in range(stack):
+        out[i] = draw()
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -7,7 +7,8 @@ interleaved pairs), qk-norm (qwen3), attention and final logit softcaps,
 local/global alternation and sandwich norms (gemma2), tied or untied LM
 head. Parameters keep the JAX package's tree: ``embed``, ``final_norm``,
 ``head`` (untied), and ``layers``, a dict of tensors stacked over layers
-``(L, ...)``. They stay in ``param_dtype`` (fp32) and are cast to the
+``(L, ...)``. They stay in ``param_dtype`` (fp32 by default; bf16 where
+fp32 would not fit, as for moonshot at full width) and are cast to the
 compute dtype one layer at a time, at the matmul, so no second full copy
 exists.
 
@@ -18,10 +19,16 @@ plain jnp outside any Pallas kernel in the JAX package. The KV cache is
 updated in place by ``decode_step`` (the JAX version returns a new one):
 at full width a second cache would not fit beside the first.
 
-Not ported yet (they raise ``NotImplementedError``): MoE layers, the
-device mesh (context-parallel prefill, sharded decode) and the
-early-fusion patch stub (ROADMAP.md, Queue 1: "Off the main path, last:
-MoE, mesh, patches"); the training step.
+MoE layers (``models/moe.py``: f32 top-k routing, sort-based capacity
+dispatch, per-expert SwiGLU) replace the dense FFN where ``cfg.moe``;
+their router aux loss is dropped, as the JAX package's ``prefill`` and
+``decode_step`` drop it (only its training step returns it). The
+early-fusion stub projects ``patches`` (``prefill(patches=)``) into the
+first ``fused_patches`` positions.
+
+Not ported yet (it raises ``NotImplementedError``): the device mesh
+(context-parallel prefill, sharded decode, expert parallelism; ROADMAP.md,
+Queue 1); the training step.
 """
 from __future__ import annotations
 
@@ -29,20 +36,16 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_ffn, moe_init
 
 _LOGIT_CHUNK = 32768  # vocab rows of the head cast to f32 at a time
 
 
-def _unsupported(cfg, mesh=None, patches=None) -> None:
-    what = [n for n, on in (("MoE layers", cfg.moe),
-                            ("a device mesh", mesh is not None),
-                            ("patch embeddings", patches is not None))
-            if on]
-    if what:
+def _unsupported(mesh) -> None:
+    if mesh is not None:
         raise NotImplementedError(
-            f"{', '.join(what)}: not ported yet (ROADMAP.md, Queue 1, \"Off "
-            f"the main path, last: MoE, mesh, patches\"; the port serves dense"
-            f" LMs on one device)")
+            "a device mesh: not ported yet (ROADMAP.md, Queue 1: the LM's "
+            "device mesh; the port serves LMs on one device)")
 
 
 # --------------------------------------------------------------------------
@@ -55,7 +58,6 @@ def init_params(cfg, generator: torch.Generator) -> dict:
     ``generator`` on its device. The numbers differ from the JAX package's
     (another generator): tests carry its weights over with
     ``repro_torch.convert.lm_params_from_repro``."""
-    _unsupported(cfg)
     dtype = L.dt(cfg.param_dtype)
     dev = generator.device
     d, n = cfg.d_model, cfg.n_layers
@@ -75,7 +77,10 @@ def init_params(cfg, generator: torch.Generator) -> dict:
                                           stack=n)
         layers["k_norm"] = L.rmsnorm_init(cfg.head_dim, torch.float32, dev,
                                           stack=n)
-    layers["ffn"] = L.swiglu_init(generator, d, cfg.d_ff, dtype, stack=n)
+    if cfg.moe:
+        layers["ffn"] = moe_init(generator, cfg, dtype, stack=n)
+    else:
+        layers["ffn"] = L.swiglu_init(generator, d, cfg.d_ff, dtype, stack=n)
     params = {
         "embed": L.normal_init(generator, (cfg.vocab_size, d), dtype,
                                stddev=0.02),
@@ -85,6 +90,9 @@ def init_params(cfg, generator: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = L.normal_init(generator, (cfg.vocab_size, d), dtype,
                                        stddev=0.02)
+    if cfg.fused_patches:
+        params["patch_proj"] = L.normal_init(generator, (cfg.patch_dim, d),
+                                             dtype)
     return params
 
 
@@ -168,7 +176,10 @@ def _layer(p, x, window: int, cfg, positions, mode, kv_cache=None,
     x = x + attn_out
 
     xn2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    ff = L.swiglu(p["ffn"], xn2, cdt).to(x.dtype)
+    if cfg.moe:
+        ff, _ = moe_ffn(p["ffn"], xn2, cfg, cdt)
+    else:
+        ff = L.swiglu(p["ffn"], xn2, cdt).to(x.dtype)
     if cfg.sandwich_norm:
         ff = L.rmsnorm(p["ln2_post"], ff, cfg.norm_eps)
     return x + ff, new_cache
@@ -179,11 +190,16 @@ def _layer(p, x, window: int, cfg, positions, mode, kv_cache=None,
 # --------------------------------------------------------------------------
 
 def embed_inputs(params, tokens, cfg, patches=None):
-    _unsupported(cfg, patches=patches)
+    """Token embeddings in the compute dtype; with ``cfg.fused_patches``
+    and ``patches`` (B, P, patch_dim), their projection replaces the
+    first ``fused_patches`` positions (the early-fusion stub)."""
     cdt = L.dt(cfg.compute_dtype)
     x = params["embed"][tokens].to(cdt)
     if cfg.sandwich_norm:  # gemma scales embeddings by sqrt(d), in cdt
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=x.device)
+    if cfg.fused_patches and patches is not None:
+        pe = patches.to(cdt) @ params["patch_proj"].to(cdt)
+        x = torch.cat([pe, x[:, cfg.fused_patches:]], dim=1)
     return x
 
 
@@ -205,10 +221,11 @@ def prefill(params, tokens, cfg, *, pad_to=None, mesh=None, patches=None):
     """Run the prompt (B, S) and build the KV cache. Returns (caches,
     last_logits (B, V) f32): caches (k, v) stacked over layers,
     (L, B, max(S, pad_to), KVH, D) in the compute dtype, zero past S.
-    Logits are taken at the last position only."""
-    _unsupported(cfg, mesh, patches)
+    Logits are taken at the last position only. ``patches``: the
+    early-fusion stub's inputs (``embed_inputs``)."""
+    _unsupported(mesh)
     B, S = tokens.shape
-    x = embed_inputs(params, tokens, cfg)
+    x = embed_inputs(params, tokens, cfg, patches)
     positions = torch.arange(S, device=x.device)[None, :]
     s_cache = max(S, pad_to or 0)
     shape = (cfg.n_layers, B, s_cache, cfg.n_kv_heads, cfg.head_dim)
@@ -227,7 +244,7 @@ def decode_step(params, caches, lengths, last_tokens, cfg, *, mesh=None):
     """One serving step: append ``last_tokens`` (B,) at ``lengths`` (B,) and
     predict the next token. Writes the caches in place; returns
     (caches, logits (B, V) f32)."""
-    _unsupported(cfg, mesh)
+    _unsupported(mesh)
     x = embed_inputs(params, last_tokens[:, None], cfg)
     positions = lengths[:, None]
     k_all, v_all = caches

@@ -5,7 +5,12 @@ instantiations), compact and the four midgrid walk instantiations are
 there without spills, and fails when one is missing or spills
 (``unpack_kernel`` must not stand in for ``pack_kernel``); the SIMT flash
 gate fails when a D = 256 instantiation (f32 or bf16) spills or is
-missing. The pure helpers of the ``[envelope]``, ``[steady]`` and
+missing; the tensor-core gate when gemma2's D = 256 or moonshot's D = 128
+instantiation spills or is missing, or the SASS has no HGMMA. The LM
+phases' gates (``lm_gates``) fail on each planted fault, the route-flip
+rule accepts only near-ties, ``RouteRecorder`` forces another run's
+experts, and ``[moe]`` with ``[moe-checks]`` runs whole on the CPU at
+SMOKE width. The pure helpers of the ``[envelope]``, ``[steady]`` and
 ``[fleet]`` phases (the fixed arrival rate and the uncached probe beside
 it, each gate's comparisons, the deleted-doc and result-cache checks,
 the live segments' file bytes, the fleet's deletes) pass on sound inputs
@@ -110,6 +115,198 @@ def test_simt_flash_gate_fails_on_a_d256_spill_or_a_missing_kernel(
         SIMT, **{fault: kernel}))
     with pytest.raises(AssertionError, match="missing or spills"):
         chip_smoke.simt_build_check()
+
+
+TC = ("_ZN54_GLOBAL__N__1b2c3d4e_21_flash_attention_tc_cu_5f6a7b8c15flash_tc_"
+      "kernelILi{d}ELi{n}EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiiiiiiiff")
+TC_FNS = [TC.format(d=d, n=n) for d, n in ((64, 128), (128, 128), (192, 64),
+                                           (256, 64))]
+
+
+def _tc_check(chip_smoke, monkeypatch, report, sass="HGMMA.64x128x16"):
+    import subprocess
+    monkeypatch.setattr(_build, "build_report", lambda name: report)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(_build, "_target", lambda name: Path("/x/tc.so"))
+    monkeypatch.setattr(subprocess, "run", lambda *a, **kw:
+                        types.SimpleNamespace(stdout=sass))
+    return chip_smoke.tc_build_check()
+
+
+def test_tensor_core_gate_passes_without_spills(chip_smoke, monkeypatch):
+    got = _tc_check(chip_smoke, monkeypatch, _report(TC_FNS))
+    assert got["hgmma"] == 1
+    assert set(got["instantiations"]) == {"D64_BN128", "D128_BN128",
+                                          "D192_BN64", "D256_BN64"}
+
+
+@pytest.mark.parametrize("kernel", ["ILi128ELi128E", "ILi256ELi64E"])
+@pytest.mark.parametrize("fault", ["spill", "drop"])
+def test_tensor_core_gate_fails_on_an_lm_paths_spill_or_missing_kernel(
+        chip_smoke, monkeypatch, kernel, fault):
+    """gemma2's D = 256 and moonshot's D = 128 instantiations lie on user
+    paths: a spill or a missing one fails [build]; the others may not."""
+    with pytest.raises(AssertionError, match="missing or spills"):
+        _tc_check(chip_smoke, monkeypatch,
+                  _report(TC_FNS, **{fault: kernel}))
+    _tc_check(chip_smoke, monkeypatch, _report(TC_FNS, spill="ILi192ELi64E"))
+
+
+def test_tensor_core_gate_fails_without_hgmma(chip_smoke, monkeypatch):
+    with pytest.raises(AssertionError, match="no HGMMA"):
+        _tc_check(chip_smoke, monkeypatch, _report(TC_FNS), sass="HMMA")
+
+
+def _lm_gate_inputs():
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.serving.scheduler import Request
+    cfg = get_arch("moonshot-v1-16b-a3b").config
+    launches = {"flash_attention_tc": 48 * 3, "flash_attention": 0}
+    toks = torch.randint(0, cfg.vocab_size, (4, 16))
+    done = [Request(rid=i, prompt=np.ones(5), max_new=16,
+                    generated=list(range(16)), done=True) for i in (1, 0)]
+    return dict(tag="moe", cfg=cfg, gen_launches=48, launches=launches,
+                toks=toks, requests=4, gen=16, done=done, n_sched=2,
+                peak_gb=66.0, card_gb=85.0)
+
+
+def test_lm_gates_pass(chip_smoke):
+    chip_smoke.lm_gates(**_lm_gate_inputs())
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("generate_launches", "generate's prefill launched the tensor-core "
+                          "flash kernel 47 times"),
+    ("sched_launches", "the scheduler's prefills launched"),
+    ("simt", "launched the SIMT flash kernel 1 times"),
+    ("token_range", "malformed tokens"), ("token_shape", "malformed tokens"),
+    ("unfinished", "did not finish every request"),
+    ("short", "did not finish every request"),
+    ("memory", "peak device memory")])
+def test_lm_gates_fail_on_a_planted_fault(chip_smoke, fault, match):
+    kw = _lm_gate_inputs()
+    if fault == "generate_launches":
+        kw["gen_launches"] = 47
+    elif fault == "sched_launches":
+        kw["launches"]["flash_attention_tc"] -= 1
+    elif fault == "simt":
+        kw["launches"]["flash_attention"] = 1
+    elif fault == "token_range":
+        kw["toks"][1, 3] = kw["cfg"].vocab_size
+    elif fault == "token_shape":
+        kw["toks"] = kw["toks"][:, :15]
+    elif fault == "unfinished":
+        kw["done"] = kw["done"][:1]
+    elif fault == "short":
+        kw["done"][0].generated.pop()
+    else:
+        kw["peak_gb"] = 85.0
+    with pytest.raises(AssertionError, match=r"\[moe\] gates: .*" + match):
+        chip_smoke.lm_gates(**kw)
+
+
+def _calls(experts, margin):
+    return [{"experts": torch.tensor(e), "margin": torch.tensor(m)}
+            for e, m in zip(experts, margin)]
+
+
+def test_route_flips_accept_only_near_ties(chip_smoke):
+    want = _calls([[[0, 1], [2, 5]], [[1, 3], [0, 4]], [[2, 3], [0, 1]]],
+                  [[0.1, 0.2], [0.001, 0.3], [0.002, 0.1]])
+    same = _calls([[[0, 1], [2, 5]], [[1, 3], [0, 4]], [[2, 3], [0, 1]]],
+                  [[0, 0]] * 3)
+    assert chip_smoke.route_flips(want, same, 2 ** -8) == []
+    near = _calls([[[0, 1], [2, 5]], [[1, 2], [0, 4]], [[2, 4], [0, 1]]],
+                  [[0, 0]] * 3)
+    assert chip_smoke.route_flips(want, near, 2 ** -8) == [
+        (1, pytest.approx(0.001)), (2, pytest.approx(0.002))]
+    assert chip_smoke.route_flips(want, near, 2 ** -8, first=True) == [
+        (1, pytest.approx(0.001))]
+    assert chip_smoke.route_flips(want, near, 2 ** -8, last=True) == []
+    clear = _calls([[[0, 1], [2, 6]], [[1, 3], [0, 4]], [[2, 3], [0, 1]]],
+                   [[0, 0]] * 3)
+    with pytest.raises(AssertionError, match="not a near-tie"):
+        chip_smoke.route_flips(want, clear, 2 ** -8, last=True)
+    with pytest.raises(AssertionError, match="MoE calls"):
+        chip_smoke.route_flips(want, clear[:1], 2 ** -8)
+
+
+def test_route_recorder_forces_the_other_runs_experts(chip_smoke):
+    """A run under ``force`` takes the other run's experts call by call
+    (its gates from its own probabilities) and records its own choice."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe, transformer as TF
+    cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b").smoke,
+                              compute_dtype="float32")
+    params = TF.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 12)))
+    with chip_smoke.RouteRecorder() as a:
+        _, want = TF.prefill(params, toks, cfg)
+    rolled = [{**c, "order": (c["order"] + 1) % cfg.n_experts}
+              for c in a.calls]
+    with chip_smoke.RouteRecorder(force=rolled) as b:
+        _, got = TF.prefill(params, toks, cfg)
+    assert TF.moe_ffn.__name__ == moe.moe_ffn.__name__ == "moe_ffn"
+    assert moe.route.__name__ == "route"
+    # layer 0 sees the same input, so records the same own choice
+    assert torch.equal(a.calls[0]["experts"], b.calls[0]["experts"])
+    assert not torch.allclose(got, want)              # the forced one ran
+    with chip_smoke.RouteRecorder(force=a.calls):
+        _, same = TF.prefill(params, toks, cfg)
+    assert torch.equal(same, want)
+
+
+def test_phase_moe_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
+    """[moe] and [moe-checks] whole on the CPU at SMOKE width (moonshot,
+    bf16 weights, 24-token prompts; the full-width check at 40 tokens).
+    The flash op's calls are counted under the kernel a card would take
+    at a head dim of 64 or more (bf16: the tensor cores; smoke's D = 16
+    takes the SIMT kernel there), so every launch gate applies as on the
+    card; the CPU's peak memory is not measured."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import transformer as TF
+
+    def route(dtype, D):
+        return "flash_attention_tc" if dtype == torch.bfloat16 \
+            else "flash_attention"
+    orig = TF.flash_attention
+
+    def counted(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        _build.count_launch(route(q.dtype, q.shape[-1]))
+        return out
+    monkeypatch.setattr(fops, "route", route)
+    monkeypatch.setattr(TF, "flash_attention", counted)
+    monkeypatch.setattr(chip_smoke, "LM_FULL_CHECK_LEN", 40)
+    argv = ["--mode", "lm", "--arch", "moonshot-v1-16b-a3b", "--param-dtype",
+            "bfloat16", "--requests", "4", "--prompt-len", "24", "--gen",
+            "16"]
+    cpu = torch.device("cpu")
+    rec = chip_smoke.ShapeRecorder()
+    rep, launches, cfg, params = chip_smoke.phase_lm(cpu, "cpu", rec, argv,
+                                                     (24, 6), "moe")
+    assert launches == {**launches, "flash_attention_tc": 3 * cfg.n_layers,
+                        "flash_attention": 0}
+    assert params["layers"]["ffn"]["w_up"].dtype == torch.bfloat16
+    assert 0 <= rep["drop_share"] < 1 and rep["peak_gb"] is None
+    assert rep["sched_tokens"] == 2 * chip_smoke.SCHED_GEN
+    assert rep["active_param_count"] < rep["param_count"]
+    out = chip_smoke.phase_lm_checks(cpu, cfg, params, rec, 24,
+                                     chip_smoke.MOE_SMOKE_ARCHS)
+    assert out["f32_launches"]["flash_attention"] == 2 * cfg.n_layers
+    for dtype in ("bfloat16", "float32"):
+        chk = out[f"full_decode_vs_prefill_{dtype}"]
+        assert chk["dropped"] == 0 and chk["capacity_factor"] == 4.0
+        assert set(chk["planted_rms_ratio"]) == {"experts_rolled",
+                                                 "position_minus_1"}
+        assert chk["moe_rms_ratio"] <= chk["moe_limit"]
+        assert min(chk["planted_moe_rms_ratio"].values()) > chk["moe_limit"]
+        assert chk["planted_rms_ratio"]["position_minus_1"] > chk["limit"]
+    assert set(out["smoke_card_vs_cpu_max_abs"]) == {
+        f"{a}/{d}" for a in chip_smoke.MOE_SMOKE_ARCHS
+        for d in ("float32", "bfloat16")}
 
 
 def _threads(fn, n: int = 8, calls: int = 2000):
