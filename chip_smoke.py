@@ -74,24 +74,48 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               every assignment sent to the next expert; moonshot and
               llama4 (with patches) at SMOKE width on the card (on the
               CPU's routing) and on the CPU. Its state is then freed;
-8. slice    — the retrieval main path through ``repro_torch.launch.serve``
+8. train    — LM training through ``launch.train``'s loop: stablelm-12b
+              at its published widths with 8 of its 40 layers (3.25 B
+              params; fp32 params, grads and AdamW state, 52.0 GB; 40
+              layers would take 194 GB), bf16 compute, 6 steps of 2 x
+              4096 tokens (``LMBatches``, seed 0), lr 1e-5. Each step's
+              loss and grad norm, the median step, tok/s, the peak device
+              memory and the model-FLOP share. Gates: losses and grad
+              norms finite, the last step's loss below the first's, and
+              the same 6 steps with the gradient's sign flipped fail
+              that; no kernel launches (training attends through the
+              plain blockwise function, as the JAX training step does).
+              Then at 2 layers over one 4096-token sequence the
+              bf16-compute gradient against the f32-compute one: the
+              largest relative RMS over leaves within TRAIN_GRAD_LIMIT,
+              and above it with the causal mask dropped and with the
+              queries' rope one position ahead;
+9. train-checks — at SMOKE width, the card against the CPU on the same
+              weights and batches: stablelm, gemma2 and moonshot over 2
+              AdamW steps in f32 and bf16 (losses, grad norms, the
+              params' update), 4 microbatches against 1, a run
+              checkpointed at step 2 by ``AsyncCheckpointer``, resumed
+              and held against the uninterrupted one, and a torn save
+              (an in-place update right after ``save_async`` with its
+              host copy removed) seen;
+10. slice   — the retrieval main path through ``repro_torch.launch.serve``
               with the full ``lucene_envelope`` CONFIG over a corpus with
               ClueWeb09b's law scaled to ``--docs // SLICE_CUT``: index,
               refresh, serve ``--requests`` queries (32 slots, 4 terms,
               k=10), index more, refresh, serve, delete 8 + update 4
               docs, refresh, serve;
-9. checks   — pruned == exhaustive bit for bit on the first 32 queries on
+11. checks  — pruned == exhaustive bit for bit on the first 32 queries on
               the card, in the tombstone-free and the tombstoned snapshot,
               every pruned id carrying its true score (ids may differ only
               among equal scores); the card's top-k equal the port's CPU
               path on a 2^14-doc index built from the same batch; beside
               it (neither is timed as a metric), ``examples/torch_*.py``
               on the card, each must exit 0;
-10. profile  — where serving time goes: device busy share of 4 served
+12. profile — where serving time goes: device busy share of 4 served
               batches under ``torch.profiler`` (device-side events only),
               top kernels, and the host functions with the most own time
               under ``cProfile``;
-11. durable  — the durable path at ``--docs``: index every batch into an
+13. durable — the durable path at ``--docs``: index every batch into an
               ``FSDirectory`` on the local disk with the WAL, apply the
               slice's 8 deletes + 4 updates, ``commit()``; recover with
               ``open_searcher(..., ReaderCache(compact=True))`` and serve
@@ -102,7 +126,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               indexer, reopen the directory and check that the WAL
               replays the acked docs and a query batch returns what it
               returned before the drop; its ``envelope_report()``;
-12. envelope — the paper's experiment at CONFIG width: per media pair
+14. envelope — the paper's experiment at CONFIG width: per media pair
               (isolated ``nas -> ssd``, two throttles; shared ``ssd ->
               ssd``, one), 1 batch (2^14 docs) spooled into a throttled
               RAM source, ``index_spooled`` into a throttled
@@ -113,7 +137,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               files' bytes, and the isolated pair's measured GB/min
               beats the shared pair's; then ``calibrate()`` refitted with
               both runs;
-13. steady  — serving while indexing, open loop: an ``Indexer`` with the
+15. steady  — serving while indexing, open loop: an ``Indexer`` with the
               refresh daemon (1 s) and 2 merge threads, a cached
               ``QueryScheduler`` attached; 4 seed batches (the warm probe
               timed once more, uncached, and its QPS printed), then
@@ -127,9 +151,9 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               scores, no deleted doc served, the last generation's cache
               entries == uncached searches. Latency is reported for all
               arrivals and for the cache misses alone;
-14. fleet   — the replicated fleet (``repro_torch.replication``): 2 range
-              shards x 2 replicas at CONFIG width, 2^14 docs a shard
-              committed, then 2^14 more and 8 deletes a shard and a second
+16. fleet   — the replicated fleet (``repro_torch.replication``): 2 range
+              shards x 2 replicas at CONFIG width, 2^13 docs a shard
+              committed, then 2^13 more and 8 deletes a shard and a second
               commit; shard 0's replicas are ``ReplicaSyncer``s in this
               process, shard 1's ``RemoteReplica`` processes, each with its
               own CUDA context; first and delta sync (wall, lag, files,
@@ -142,7 +166,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               bit for bit, ids by true score), no deleted doc served;
               unpack and bm25_blocks or midgrid launched in this process
               and in each replica process;
-15. mesh    — the multi-device indexing step (``make_index_step``: invert,
+17. mesh    — the multi-device indexing step (``make_index_step``: invert,
               all-to-all term shuffle over ``model``, pack) at full CONFIG
               width, 4096 docs x 1024 tokens a rank of CW09B_SMALL's law:
               a world of 4 processes on this card over gloo (a (2, 2)
@@ -159,7 +183,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
               world; every term on model index m is m mod 2; pack launched
               in each rank's counted step; ``merge_topk_sharded`` over a
               (4,) and a (1,) ``shard`` mesh == the host merge;
-16. timing  — each kernel on the very inputs the paths gave it, at every
+18. timing  — each kernel on the very inputs the paths gave it, at every
               shape it was launched with (blocks; for flash attention
               batch, length and window): held against its plain version
               once more, then its median device time over 21 launches
@@ -219,6 +243,14 @@ moonshot's shapes added). So [envelope] runs at 2^14 docs a pair, not
 (``FLEET_BATCHES``), with 8 closed-loop batches, not 16
 (``FLEET_SERVE_BATCHES``), [mesh] times 3 steps a payload, not 5
 (``MESH_STEPS``), and [timing] times each plain version once.
+[train] and [train-checks] took 28.2-28.5 + 3.9-4.5 s and the script
+1020.1-1020.4 s against durable paths of 561.1 and 541.7 s (1.818 and
+1.884, over the limit on the faster durable path), the train example in
+[examples] beside [checks]. So the slice runs at 2^15 (``SLICE_CUT``
+32, not 16: 11.3 s at 2^16), [fleet] at 2^13 docs a shard
+(``FLEET_BATCH_DOCS``, not 2^14: 47.2-50.8 s), and [timing] takes the
+plain version's check call as its warm-up (29.6-29.9 s with a separate
+one).
 
 Prints the script's ``total_s``, the kernels as one JSON line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Details
@@ -229,6 +261,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import gc
 import json
@@ -243,7 +276,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12     # dense tensor-core peak
-SLICE_CUT = 16              # the in-memory slice runs at --docs // SLICE_CUT
+SLICE_CUT = 32              # the in-memory slice runs at --docs // SLICE_CUT
 
 
 def _fail(msg: str) -> int:
@@ -1231,6 +1264,471 @@ def phase_lm_checks(dev, cfg, params, rec, prompt_len: int,
     return out
 
 
+# --------------------------------------------------------------------------
+# the LM training path ([train], [train-checks])
+# --------------------------------------------------------------------------
+
+# stablelm-12b (launch/train.py's default arch) at its published widths,
+# 8 of its 40 layers: fp32 params, grads and AdamW's m and v take 16 B a
+# parameter, 194.3 GB at 40 layers and 52.0 GB at 8 (3.25 B params); the
+# widths, 4096-token sequences and the vocabulary are not cut
+TRAIN_ARCH = "stablelm-12b"
+TRAIN_LAYERS = 8
+# lr 1e-5, not the driver's default 3e-4: Adam's first steps move every
+# weight by about lr (the gradient's sign), and at d_model 5120 that moves
+# a layer's outputs by O(1) of their scale; with no warm-up (the JAX
+# driver has none) the loss then rises (tools/train_lr_scan.py)
+TRAIN_ARGV = ["--steps", "6", "--batch", "2", "--seq", "4096", "--lr",
+              "1e-5", "--log-every", "1"]
+# the gradient check: 2 layers, one 4096-token sequence
+TRAIN_GRAD_LAYERS = 2
+TRAIN_GRAD_SEQ = 4096
+# the largest relative RMS (per leaf) of the bf16-compute gradient against
+# the f32-compute one: 1.3x the largest bf16 spread of the CPU tests
+# (0.0221 port against JAX, tests/test_torch_train.py; 0.0230 bf16 against
+# f32 at SMOKE width); on the CPU a 1280-wide 2-layer stablelm over 4096
+# tokens read 0.0114 sound, 0.4922 with the causal mask off and 0.0765
+# with q rotated one position ahead of k
+TRAIN_GRAD_LIMIT = 0.03
+TRAIN_SMOKE_ARCHS = ("stablelm-12b", "gemma2-9b", "moonshot-v1-16b-a3b")
+TRAIN_SMOKE_STEPS = 2
+# card against the CPU at SMOKE width: loss and grad norm (relative), and
+# each leaf's update over the steps (tests/test_torch_train.py's rule: at
+# f32 within STEP_RMS of its RMS; at bf16 at most STEP_FLIPS of its
+# elements off by more than STEP_ABS, a gradient within rounding of 0
+# moving a param by up to 2 lr a step, none by more)
+TRAIN_SMOKE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
+STEP_RMS, STEP_ABS, STEP_FLIPS = 1e-3, 1e-5, 0.02
+# the card's bf16 sums differ from the CPU's more than the two packages'
+# on the CPU: over 2 steps the largest share of a leaf's elements off was
+# 2.66% (stablelm), 3.13% (gemma2) and 0.84% (moonshot) on an H100; a
+# wrong gradient moves most of them
+TRAIN_SMOKE_FLIPS = 0.10
+MICRO_RTOL = 2e-3                   # tests/test_training.py's
+# a resumed run's losses against the uninterrupted one's on the card (the
+# embedding's and the dispatch's backward add by atomics there, so not bit
+# for bit); its params by update_gate at f32
+RESUME_LOSS_TOL = 1e-5
+
+
+def train_gates(tag: str, losses: list, grad_norms: list) -> None:
+    """A training run's gates: every loss and grad norm finite, and the
+    loss at the last step below the first step's."""
+    import math
+    bad = []
+    if not losses or not all(math.isfinite(x) for x in losses + grad_norms):
+        bad.append(f"a loss or grad norm is not finite: {losses} "
+                   f"{grad_norms}")
+    elif not losses[-1] < losses[0]:
+        bad.append(f"the loss did not fall: {losses[0]} at the first step, "
+                   f"{losses[-1]} at the last")
+    if bad:
+        raise AssertionError(f"[{tag}] gates: " + "; ".join(bad))
+
+
+def update_readings(got: list, want: list, before: list) -> dict:
+    """Each leaf's update (after minus before) against the reference's:
+    the largest relative RMS of their difference, the largest share of
+    elements off by more than STEP_ABS, and the largest difference."""
+    import torch
+    rms = flips = worst = 0.0
+    for a, b, c in zip(got, want, before, strict=True):
+        da = a.double().cpu() - c.double().cpu()
+        db = b.double().cpu() - c.double().cpu()
+        off = (da - db).abs()
+        rms = max(rms, float(torch.sqrt((off ** 2).mean())
+                             / torch.sqrt((db ** 2).mean()).clamp(
+                                 min=1e-30)))
+        flips = max(flips, float((off > STEP_ABS).double().mean()))
+        worst = max(worst, float(off.max()))
+    return {"update_rms_ratio": rms, "share_off": flips, "max_abs": worst}
+
+
+def update_gate(readings: dict, dtype: str, steps: int, lr: float,
+                flips: float = STEP_FLIPS) -> None:
+    """``update_readings``' limits: at f32 within STEP_RMS of the update's
+    RMS; at bf16 at most ``flips`` of a leaf's elements off by more than
+    STEP_ABS; none off by more than 2 lr a step."""
+    ok = readings["max_abs"] <= 2 * lr * steps * (1 + 1e-3) and (
+        readings["update_rms_ratio"] <= STEP_RMS if dtype == "float32"
+        else readings["share_off"] <= flips)
+    if not ok:
+        raise AssertionError(f"the params' update differs ({dtype}): "
+                             f"{readings}")
+
+
+@contextlib.contextmanager
+def flipped_gradient():
+    """A planted fault: AdamW takes every gradient with its sign flipped
+    (an ascent)."""
+    from repro_torch import tree
+    from repro_torch.optim import adamw
+    orig = adamw.update
+
+    def flipped(params, grads, state, **kw):
+        for g in tree.leaves(grads):
+            g.neg_()
+        return orig(params, grads, state, **kw)
+    adamw.update = flipped
+    try:
+        yield
+    finally:
+        adamw.update = orig
+
+
+@contextlib.contextmanager
+def causal_mask_dropped():
+    """A planted fault: the train attention attends to later positions."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    orig = TF._train_attention
+
+    def open_attention(q, k, v, window, cfg):
+        return L.blockwise_attention(q, k, v, causal=False, window=window,
+                                     softcap=cfg.attn_softcap,
+                                     block_q=cfg.attn_block_q,
+                                     block_kv=cfg.attn_block_kv)
+    TF._train_attention = open_attention
+    try:
+        yield
+    finally:
+        TF._train_attention = orig
+
+
+@contextlib.contextmanager
+def rope_shifted(n_heads: int):
+    """A planted fault: queries rotated one position ahead of the keys
+    (rope is relative: shifting both would change nothing)."""
+    from repro_torch.models import layers as L
+    orig = L.apply_rope
+
+    def shifted(x, positions, inv_freq, rot_dim):
+        if x.shape[-2] == n_heads:
+            positions = positions + 1
+        return orig(x, positions, inv_freq, rot_dim)
+    L.apply_rope = shifted
+    try:
+        yield
+    finally:
+        L.apply_rope = orig
+
+
+def _train_grads(params, batch, cfg) -> list:
+    """forward_train's gradient of every leaf (the step's own
+    ``_grads``)."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.training.train_step import _grads
+    return _grads(lambda p, b: TF.forward_train(p, b, cfg), params,
+                  batch)[2]
+
+
+def _leaf_rms_ratio(got: list, want: list) -> float:
+    return max(_rms(g.float() - w.float()) / max(_rms(w), 1e-30)
+               for g, w in zip(got, want, strict=True))
+
+
+def train_grad_check(dev, cfg, seq: int) -> dict:
+    """The bf16-compute gradient of ``cfg`` (full width, cut to a few
+    layers) against the f32-compute gradient of the same weights and one
+    ``seq``-token batch: the largest relative RMS over leaves within
+    TRAIN_GRAD_LIMIT, and above it with the causal mask dropped and with
+    the queries' rope one position ahead."""
+    import dataclasses
+    import torch
+    from repro_torch.data.lm import LMBatches
+    from repro_torch.models import transformer as TF
+    params = TF.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in LMBatches(
+        cfg.vocab_size, 1, seq, seed=0).batch_at(0).items()}
+    want = _train_grads(params, batch,
+                        dataclasses.replace(cfg, compute_dtype="float32"))
+    out = {"layers": cfg.n_layers, "seq": seq, "limit": TRAIN_GRAD_LIMIT}
+    runs = {"sound": contextlib.nullcontext(),
+            "causal_mask_dropped": causal_mask_dropped(),
+            "rope_q_plus_1": rope_shifted(cfg.n_heads)}
+    for name, fault in runs.items():
+        with fault:
+            got = _train_grads(params, batch, cfg)
+        out[name] = _leaf_rms_ratio(got, want)
+        del got
+    del params, want
+    if not (out["sound"] <= TRAIN_GRAD_LIMIT
+            < min(out["causal_mask_dropped"], out["rope_q_plus_1"])):
+        raise AssertionError(f"[train] gradient check: {out}")
+    return out
+
+
+def phase_train(dev, card, cfg, argv=TRAIN_ARGV,
+                grad_layers: int = TRAIN_GRAD_LAYERS,
+                grad_seq: int = TRAIN_GRAD_SEQ) -> dict:
+    """LM training through ``launch.train``'s loop (``run``) on ``cfg``
+    (stablelm-12b's published widths, TRAIN_LAYERS of its 40 layers):
+    fp32 params and AdamW state, bf16 compute, ``argv``'s steps on
+    ``LMBatches`` (seed 0). Each step's loss and grad norm, the median
+    step of all but the first, tok/s, the peak device memory and the
+    model-FLOP share (6 x params x tokens + 12 x layers x B x S^2 x H x D,
+    a step's, over the step's seconds, at the bf16 dense peak). Gates:
+    ``train_gates``; the same steps with the gradient's sign flipped
+    must fail them; ``train_grad_check`` at ``grad_layers`` layers."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import train as T
+    from repro_torch.training import train_step as TS
+    cuda = dev.type == "cuda"
+    args = T.build_parser().parse_args([*argv, "--device", str(dev)])
+    runs = {}
+    for name, fault in (("sound", contextlib.nullcontext()),
+                        ("gradient_sign_flipped", flipped_gradient())):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        with fault:
+            out = T.run(cfg, TS.make_lm_train_step(cfg, lr=args.lr), args,
+                        dev)
+        runs[name] = {k: out[k] for k in ("losses", "grad_norms",
+                                          "step_s", "init_s")}
+        runs[name]["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                                 if cuda else None)
+        del out
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    rep = dict(runs["sound"])
+    train_gates("train", rep["losses"], rep["grad_norms"])
+    flipped = runs["gradient_sign_flipped"]
+    try:
+        train_gates("train", flipped["losses"], flipped["grad_norms"])
+    except AssertionError:
+        rep["flipped_caught"] = True
+    else:
+        raise AssertionError(f"[train] the gradient's sign flipped passes "
+                             f"the gates: {flipped}")
+    rep["flipped_losses"] = flipped["losses"]
+    B, S = args.batch, args.seq
+    rep["param_count"] = cfg.param_count()
+    rep["tokens_per_step"] = B * S
+    rep["median_step_s"] = statistics.median(rep["step_s"][1:])
+    rep["tok_per_s"] = B * S / rep["median_step_s"]
+    flops = 6 * rep["param_count"] * B * S + 12 * cfg.n_layers * B * S \
+        * S * cfg.n_heads * cfg.head_dim
+    rep["model_flops_per_step"] = flops
+    rep["model_flop_share"] = flops / rep["median_step_s"] / BF16_OPS_PER_S
+    gb = lambda v: "not measured" if v is None else f"{v:.2f} GB"  # noqa
+    print(f"[train] on {card}: {cfg.name} at its published widths, "
+          f"{cfg.n_layers} of its layers (d_model {cfg.d_model}, "
+          f"{rep['param_count']:,} params, fp32 params and AdamW state, "
+          f"{cfg.compute_dtype} compute, init {rep['init_s']:.2f}s): "
+          f"{args.steps} steps of {B} x {S} tokens, lr {args.lr}", flush=True)
+    for i, (l, g, s) in enumerate(zip(rep["losses"], rep["grad_norms"],
+                                      rep["step_s"])):
+        print(f"[train] step {i}: loss {l:.4f}, grad norm {g:.4f}, "
+              f"{s:.3f}s", flush=True)
+    print(f"[train] on {card}: median step {rep['median_step_s']:.3f}s "
+          f"(steps 2-{args.steps}), {rep['tok_per_s']:.1f} tok/s, peak "
+          f"memory {gb(rep['peak_gb'])}, model-FLOP share "
+          f"{rep['model_flop_share']:.4f} of {BF16_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s; the gradient's sign flipped: losses "
+          f"{[round(x, 4) for x in flipped['losses']]} (caught)", flush=True)
+    gcfg = dataclasses.replace(cfg, n_layers=grad_layers)
+    rep["grad_check"] = train_grad_check(dev, gcfg, grad_seq)
+    print(f"[train] gradient check ({grad_layers} layers, 1 x {grad_seq} "
+          f"tokens): bf16 against f32 compute, largest relative RMS over "
+          f"leaves {rep['grad_check']['sound']:.5f} (limit "
+          f"{TRAIN_GRAD_LIMIT}); causal mask dropped "
+          f"{rep['grad_check']['causal_mask_dropped']:.5f}, q rotated one "
+          f"position ahead {rep['grad_check']['rope_q_plus_1']:.5f}",
+          flush=True)
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rep
+
+
+def _smoke_train(cfg, params, batches: list, dev, n_micro: int = 1,
+                 force=None) -> dict:
+    """``len(batches)`` steps of ``make_lm_train_step`` from a copy of
+    ``params`` on ``dev``; an MoE model's routing recorded (or, with
+    ``force``, taken from another run's calls). Returns the losses, grad
+    norms, final params (on the CPU) and the routing calls."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.convert import lm_params_from_repro
+    from repro_torch.optim import adamw
+    from repro_torch.training import train_step as TS
+    p = lm_params_from_repro(params, dev)
+    opt = adamw.init(p)
+    step = TS.make_lm_train_step(cfg, n_microbatch=n_micro)
+    losses, norms = [], []
+    with RouteRecorder(force=force) as rr:
+        for i, b in enumerate(batches):
+            p, opt, m = step(p, opt, {k: torch.from_numpy(v).to(dev)
+                                      for k, v in b.items()}, i)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "grad_norms": norms,
+            "params": [t.cpu() for t in tree.leaves(p)], "routes": rr.calls}
+
+
+def _rel(a: list, b: list) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b,
+                                                               strict=True))
+
+
+def torn_save_caught(dev, tmp, fault: bool) -> bool:
+    """Save params and AdamW state with ``AsyncCheckpointer``, update
+    them in place right after ``save_async`` returns (the writer held
+    until then), and restore: whether the restored state differs from the
+    state at the save. ``fault``: ``save_async`` without its host copy."""
+    import threading
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.optim import adamw
+    params = {"w": torch.randn((256, 256), device=dev)}
+    opt = adamw.init(params)
+    state = {"params": params, "opt": opt}
+    want = tree.tree_map(lambda t: t.detach().cpu().clone(), state)
+    go = threading.Event()
+    orig_save, orig_copy = ckpt.save, ckpt.host_copy
+
+    def held(*a, **kw):
+        go.wait(60)
+        return orig_save(*a, **kw)
+    ckpt.save = held
+    if fault:
+        ckpt.host_copy = lambda t: t
+    try:
+        acp = ckpt.AsyncCheckpointer(tmp)
+        acp.save_async(0, state)
+        adamw.update(params, {"w": torch.ones_like(params["w"])}, opt,
+                     lr=1e-2)
+        go.set()
+        acp.wait()
+    finally:
+        ckpt.save, ckpt.host_copy = orig_save, orig_copy
+        go.set()
+    got, _ = ckpt.restore(tmp, want)
+    return not all(torch.equal(a, b) for a, b in zip(tree.leaves(got),
+                                                     tree.leaves(want)))
+
+
+def phase_train_checks(dev, tmp) -> dict:
+    """The training path at SMOKE width on the card against the port's
+    own CPU path on the same weights and batches:
+    1. TRAIN_SMOKE_ARCHS (stablelm; gemma2 with softcaps, local windows
+       and sandwich norms over 128 tokens, past its 64-token window;
+       moonshot's MoE backward and aux loss) at f32 and at bf16 compute,
+       TRAIN_SMOKE_STEPS AdamW steps: losses and grad norms within
+       TRAIN_SMOKE_TOL, the params' update by ``update_gate`` (an MoE
+       model's card run takes the CPU run's experts; where its own choice
+       differs the CPU margin must be a near-tie, MOE_ROUTE_TIE["smoke"]);
+    2. ``n_microbatch=4`` against 1 on the card (stablelm, bf16): loss
+       within MICRO_RTOL, params within the JAX test's rtol 2e-2 / atol
+       1e-3;
+    3. ``launch.train``'s loop (stablelm SMOKE at f32 compute)
+       checkpointed at step 2 by ``AsyncCheckpointer``, killed, resumed
+       (``--resume auto``) to step 4, against the uninterrupted run:
+       losses within RESUME_LOSS_TOL, the params' update within its RMS ratio
+       and 2 lr a step (bit for bit is asked of the CPU only:
+       tests/test_torch_train.py);
+    4. a save that an in-place update follows at once restores the state
+       at the save; with the host copy removed (a planted torn save) the
+       check sees the difference.
+    Layers run without remat here (it changes no value, and the recorded
+    routing then has one call per layer and forward)."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.lm import LMBatches
+    from repro_torch.launch import train as T
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import train_step as TS
+    cpu = torch.device("cpu")
+    out, gates = {}, []
+    lr = 3e-4
+    for arch in TRAIN_SMOKE_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(get_arch(arch).smoke,
+                                    compute_dtype=dtype, remat=False)
+            params = TF.init_params(c, torch.Generator().manual_seed(0))
+            data = LMBatches(c.vocab_size, 2, 128, seed=1)
+            batches = [data.batch_at(i) for i in range(TRAIN_SMOKE_STEPS)]
+            want = _smoke_train(c, params, batches, cpu)
+            got = _smoke_train(c, params, batches, dev,
+                               force=want["routes"] if c.moe else None)
+            chk = {"loss": _rel(got["losses"], want["losses"]),
+                   "grad_norm": _rel(got["grad_norms"], want["grad_norms"]),
+                   **update_readings(got["params"], want["params"],
+                                     tree.leaves(params))}
+            if c.moe:
+                chk["route_flips"] = route_flips(want["routes"],
+                                                 got["routes"],
+                                                 MOE_ROUTE_TIE["smoke"])
+            out[f"{arch}/{dtype}"] = chk
+            gates.append((f"{arch} {dtype}", chk, dtype))
+
+    c = get_arch("stablelm-12b").smoke
+    params = TF.init_params(c, torch.Generator().manual_seed(0))
+    b = LMBatches(c.vocab_size, 8, 32, seed=2).batch_at(0)
+    one, four = (_smoke_train(c, params, [b], dev, n_micro=n)
+                 for n in (1, 4))
+    micro = {"loss": _rel(four["losses"], one["losses"]),
+             "params_close": all(
+                 torch.allclose(x, y, rtol=2e-2, atol=1e-3)
+                 for x, y in zip(four["params"], one["params"]))}
+    out["microbatch_4_vs_1"] = micro
+
+    base = ["--steps", "5", "--batch", "2", "--seq", "64", "--log-every",
+            "1", "--device", str(dev)]
+    ck = ["--ckpt-dir", str(tmp / "resume"), "--ckpt-every", "2",
+          "--resume", "auto"]
+    parse = T.build_parser().parse_args
+    cfg, _ = T.build("stablelm-12b", smoke=True, device=dev)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    step_fn = TS.make_lm_train_step(cfg, lr=lr)
+    whole = T.run(cfg, step_fn, parse(base), dev)
+    T.run(cfg, step_fn, parse([*base, "--steps", "3", *ck]), dev)
+    resumed = T.run(cfg, step_fn, parse([*base, *ck]), dev)
+    init = tree.leaves(T.init_state(cfg, 0, dev)[0])
+    res = {"start": resumed["start"],
+           "loss": _rel(resumed["losses"], whole["losses"][3:]),
+           "bitwise": all(torch.equal(a, b) for a, b in zip(
+               tree.leaves(resumed["params"]),
+               tree.leaves(whole["params"]))),
+           **update_readings(tree.leaves(resumed["params"]),
+                             tree.leaves(whole["params"]), init)}
+    out["resume_at_3_vs_whole"] = res
+    torn = {"sound": torn_save_caught(dev, tmp / "sound", fault=False),
+            "host_copy_removed": torn_save_caught(dev, tmp / "torn",
+                                                  fault=True)}
+    out["torn_save"] = torn
+
+    bad = []
+    for what, chk, dtype in gates:
+        if not max(chk["loss"], chk["grad_norm"]) <= TRAIN_SMOKE_TOL[dtype]:
+            bad.append(f"{what}: the card's losses or grad norms differ "
+                       f"from the CPU's")
+        try:
+            update_gate(chk, dtype, TRAIN_SMOKE_STEPS, lr,
+                        flips=TRAIN_SMOKE_FLIPS)
+        except AssertionError as e:
+            bad.append(f"{what}: {e}")
+    if not (micro["loss"] <= MICRO_RTOL and micro["params_close"]):
+        bad.append("4 microbatches differ from the full batch")
+    try:
+        update_gate(res, "float32", 5, lr)
+    except AssertionError as e:
+        bad.append(f"the resumed run: {e}")
+    if res["start"] != 3 or not res["loss"] <= RESUME_LOSS_TOL:
+        bad.append("the resumed run differs from the uninterrupted one")
+    if torn != {"sound": False, "host_copy_removed": True}:
+        bad.append("the torn-save check")
+    if bad:
+        raise AssertionError("[train-checks] " + "; ".join(bad)
+                             + f": {out}")
+    return out
+
+
 def phase_slice(args, dev, rec):
     """The retrieval main path; returns its snapshots, report and launch
     counts (``rec`` keeps the inputs each kernel was given)."""
@@ -1654,11 +2152,14 @@ STEADY_SECONDS = 90.0               # of arrivals
 STEADY_TICK_GAP = 0.25
 STEADY_SURFACE_S = 60.0             # the longest a change may take to surface
 EXAMPLES = ("torch_quickstart.py", "torch_index_corpus.py",
-            "torch_serve_retrieval.py", "torch_serve_fleet.py")
+            "torch_serve_retrieval.py", "torch_serve_fleet.py",
+            "torch_train_lm.py")
+EXAMPLE_ARGS = {"torch_train_lm.py": ("--steps", "40")}
 FLEET_SHARDS = 2                    # range shards, each with ...
 FLEET_REPLICAS = 2                  # ... this many replicas
-FLEET_BATCHES = 1                   # of --batch-docs a shard (2^14 docs) ...
+FLEET_BATCHES = 1                   # of FLEET_BATCH_DOCS a shard ...
 FLEET_DELETES = 8                   # ... then one more batch and 8 deletes
+FLEET_BATCH_DOCS = 1 << 13          # docs a fleet batch (at most --batch-docs)
 FLEET_RANGE = 1 << 24               # shard si owns ids [si, si + 1) * this
 FLEET_SERVE_BATCHES = 8             # closed-loop batches of 32 queries
 FLEET_DEGRADED_BATCHES = 8          # served while a replica is quarantined
@@ -2280,9 +2781,11 @@ def phase_fleet(args, dev, card, rec, made=(), k: int = 10) -> tuple:
     t0 = time.perf_counter()
     batches = (list(made[:n_batches]) if len(made) >= n_batches else
                serve.generate_batches(corpus, n_batches, args.batch_docs))
+    docs = min(FLEET_BATCH_DOCS, args.batch_docs)
+    batches = [b[:docs] for b in batches]
     rep = {"generate_s": time.perf_counter() - t0,
-           "docs_per_shard": FLEET_BATCHES * args.batch_docs,
-           "delta_docs_per_shard": args.batch_docs}
+           "docs_per_shard": FLEET_BATCHES * docs,
+           "delta_docs_per_shard": docs}
     rng = np.random.default_rng(0)
     vocab = np.unique(batches[0][:32])[1:]
     n_q = 32 * (FLEET_SERVE_BATCHES + FLEET_DEGRADED_BATCHES
@@ -2853,7 +3356,8 @@ def start_examples() -> tuple:
     import subprocess
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return time.perf_counter(), {name: subprocess.Popen(
-        [sys.executable, str(ROOT / "examples" / name)], cwd=str(ROOT),
+        [sys.executable, str(ROOT / "examples" / name),
+         *EXAMPLE_ARGS.get(name, ())], cwd=str(ROOT),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for name in EXAMPLES}
 
@@ -2955,7 +3459,7 @@ def phase_timing(rec, launches, err, card: str, remote=None) -> tuple:
     more (exactly; flash attention within its tolerance), then timed: the
     kernel by its device time (``_device_ms``, median of 21 launches),
     the plain version on the same arguments by events around the call
-    (one call after a warm-up; its host launch time included, as its
+    (one call after the check's; its host launch time included, as its
     users pay it;
     flash attention's one batch row after the other, since it holds
     H * S^2 f32 scores per row) and, for flash attention, the SDPA
@@ -3029,8 +3533,9 @@ def phase_timing(rec, launches, err, card: str, remote=None) -> tuple:
             t_ops = ops / peak * 1e3
             row = {"S": S, "launches": weights[S],
                    "ms": _device_ms(lambda: kern(*a, **kw)),
+                   # the check's call above is the plain version's warm-up
                    "plain_ms": _median_ms(lambda: plain(*a, **kw), n=1,
-                                          warm=1),
+                                          warm=0),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
             if flash:
@@ -3353,6 +3858,35 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # LM training at stablelm-12b's published widths, alone on the card
+    # too: its kernels are none (the JAX training step attends outside
+    # its forward-only flash kernel), so none may launch
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    train = phase_train(dev, card, dataclasses.replace(
+        get_arch(TRAIN_ARCH).config, n_layers=TRAIN_LAYERS))
+    if any(_build.LAUNCHES.values()):
+        raise AssertionError(f"[train] launched a kernel: "
+                             f"{dict(_build.LAUNCHES)}")
+    train["train_s"] = time.perf_counter() - t0
+    print(f"[train] ({train['train_s']:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    import shutil
+    tmp = ROOT / "build" / f"chip_smoke_train_{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    try:
+        train["checks"] = phase_train_checks(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    train["checks_s"] = time.perf_counter() - t0
+    print(f"[train-checks] {train['checks']} ({train['checks_s']:.1f}s)",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     phases, report, launches = phase_slice(args, dev, rec)
     report["slice_s"] = time.perf_counter() - t0
@@ -3458,7 +3992,8 @@ def main(argv=None) -> int:
         "tc_build": tc_build, "retrieval_build": retrieval_build,
         "simt_build": simt_build,
         "report": report, "checks": checks, "profile": prof,
-        "durable": durable, "lm": lm, "moe": moe, "envelope": envelope,
+        "durable": durable, "lm": lm, "moe": moe, "train": train,
+        "envelope": envelope,
         "steady": steady, "fleet": fleet, "mesh": mesh,
         "examples": examples,
         "kernels": line, "kernel_shapes": per_shape,

@@ -89,8 +89,8 @@ class TransformerConfig:
 
     Feature flags cover the assigned archs: qk_norm (qwen3), logit softcaps +
     local/global alternation (gemma2), MoE top-k routing (moonshot, llama4),
-    early-fusion stub (llama4). The port serves all of them on one
-    device; the fields match the JAX package's.
+    early-fusion stub (llama4). The port serves and trains all of them
+    on one device; the fields match the JAX package's.
     """
 
     name: str
@@ -128,7 +128,8 @@ class TransformerConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     norm_eps: float = 1e-6
-    # --- training (kept for field parity; the port serves only) ---
+    # --- training: the train attention's tiles and per-layer remat
+    # (scan_layers only for field parity: the port's layers are a loop) ---
     attn_block_q: int = 512
     attn_block_kv: int = 1024
     remat: bool = True

@@ -3,7 +3,8 @@ identical state: a ``repro`` ``Segment`` becomes a ``repro_torch``
 ``Segment``, a ``repro`` ``BlockMaxIndex`` (either layout: packed
 planes, or the compact layout's plane rows) becomes the port's, and an LM
 parameter tree (``repro.models.transformer.init_params``) becomes the
-port's (``lm_params_from_repro``).
+port's (``lm_params_from_repro``), and so does an AdamW state
+(``adamw_state_from_repro``).
 
 The inputs are duck-typed: anything with the right attributes, whose
 arrays convert with ``numpy.asarray``. Nothing of the JAX package is
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.core.query import BlockMaxIndex
 from repro_torch.core.segments import Segment, fresh_seg_id
+from repro_torch.optim.adamw import AdamWState
 
 _SEG_ARRAYS = ("terms", "term_start", "docs", "tf", "positions", "pos_start",
                "doc_ids", "doc_len")
@@ -96,3 +98,14 @@ def lm_params_from_repro(params, device="cpu") -> dict:
         return torch.from_numpy(a.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def adamw_state_from_repro(state, device="cpu"):
+    """The port's ``AdamWState`` from a JAX one (``repro.optim.adamw``):
+    m and v as ``lm_params_from_repro`` carries a tree, and the step
+    count as an int32 scalar."""
+    return AdamWState(
+        m=lm_params_from_repro(state.m, device),
+        v=lm_params_from_repro(state.v, device),
+        count=torch.tensor(int(np.asarray(state.count)), dtype=torch.int32,
+                           device=device))

@@ -5,7 +5,10 @@ sorted by expert (stably), packed into a static ``(E, C, d)`` buffer with
 a trash slot for the assignments past capacity, processed with
 per-expert SwiGLU products with f32 results, and combined gate-weighted
 back onto their tokens. Tokens beyond capacity are dropped with zero
-weight (``capacity_factor`` controls the drop rate).
+weight (``capacity_factor`` controls the drop rate). The training step
+differentiates it as it stands: gates reach the router through
+``core.query.topk``'s gather, and an assignment dropped into the trash
+slot gets no gradient (the slot's row is cut off before the experts).
 
 The expert products are plain ``torch.bmm`` (the JAX package computes
 them as plain einsums, outside any Pallas kernel). Where the JAX package
@@ -82,13 +85,37 @@ def expert_load(flat_e, n_experts: int):
         0, flat_e, torch.ones_like(flat_e))
 
 
+class _BmmF32(torch.autograd.Function):
+    """bf16 (batched) a @ b with f32 results on CUDA, and its gradient as
+    JAX transposes a product with ``preferred_element_type``: the f32
+    cotangent times the other operand upcast, rounded to the operand's
+    dtype (what autograd gives the CPU's upcast operands)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.to(torch.float32).transpose(1, 2)).to(
+                a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.to(torch.float32).transpose(1, 2), g).to(
+                b.dtype)
+        return ga, gb
+
+
 def _bmm_f32(a, b):
     """a @ b (batched) with f32 results, the JAX package's
     ``preferred_element_type=float32``."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _BmmF32.apply(a, b)
     return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
 
@@ -103,9 +130,14 @@ def moe_ffn(params, x, cfg, compute_dtype):
 
     probs, gate_vals, expert_idx = route(params["router"], tokens, k)
     flat_e = expert_idx.reshape(-1)                       # (T * k,)
-    density = expert_load(flat_e, E).to(torch.float32) / (T * k)
-    aux_loss = cfg.router_aux_loss * E * torch.sum(density
-                                                   * probs.mean(dim=0))
+    # Switch-style load-balancing aux loss, divided by device values as
+    # the JAX package divides (CUDA multiplies by a Python float's
+    # reciprocal); its gradient reaches the router through ``probs``
+    counts = torch.tensor([float(T * k), float(T)], dtype=torch.float32,
+                          device=dev)
+    density = expert_load(flat_e, E).to(torch.float32) / counts[0]
+    mean_prob = probs.sum(dim=0) / counts[1]
+    aux_loss = cfg.router_aux_loss * E * torch.sum(density * mean_prob)
 
     # --- sort-based dispatch ---
     C = capacity(T, k, E, cfg.capacity_factor)

@@ -1,6 +1,6 @@
-"""Decoder-only LM backbone of the port: the serving half of the JAX
-package's ``repro/models/transformer.py`` (prefill and decode on one
-device).
+"""Decoder-only LM backbone of the port: the single-device half of the
+JAX package's ``repro/models/transformer.py`` (training, prefill and
+decode on one device).
 
 Model features, switched per config as there: GQA, RoPE (partial,
 interleaved pairs), qk-norm (qwen3), attention and final logit softcaps,
@@ -19,20 +19,28 @@ plain jnp outside any Pallas kernel in the JAX package. The KV cache is
 updated in place by ``decode_step`` (the JAX version returns a new one):
 at full width a second cache would not fit beside the first.
 
+``forward_train`` is the training loss: the layers in train mode attend
+through the plain, differentiable ``layers.blockwise_attention`` (the
+JAX flash kernel is forward-only, and the JAX training step attends
+through its jnp blockwise function too), each layer recomputed in the
+backward where ``cfg.remat`` (``torch.utils.checkpoint``, the JAX
+package's ``jax.checkpoint``), and the head ends in
+``layers.chunked_softmax_xent``.
+
 MoE layers (``models/moe.py``: f32 top-k routing, sort-based capacity
 dispatch, per-expert SwiGLU) replace the dense FFN where ``cfg.moe``;
-their router aux loss is dropped, as the JAX package's ``prefill`` and
-``decode_step`` drop it (only its training step returns it). The
-early-fusion stub projects ``patches`` (``prefill(patches=)``) into the
-first ``fused_patches`` positions.
+their router aux loss enters ``forward_train``'s loss, and ``prefill``
+and ``decode_step`` drop it, as the JAX package's do. The early-fusion
+stub projects ``patches`` into the first ``fused_patches`` positions.
 
 Not ported yet (it raises ``NotImplementedError``): the device mesh
-(context-parallel prefill, sharded decode, expert parallelism; ROADMAP.md,
-Queue 1); the training step.
+(context-parallel attention, sharded decode, expert parallelism;
+ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
@@ -45,7 +53,7 @@ def _unsupported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh: not ported yet (ROADMAP.md, Queue 1: the LM's "
-            "device mesh; the port serves LMs on one device)")
+            "device mesh; the port runs LMs on one device)")
 
 
 # --------------------------------------------------------------------------
@@ -142,19 +150,32 @@ def _attention(q, k, v, window: int, cfg):
                            softcap=cfg.attn_softcap)
 
 
+def _train_attention(q, k, v, window: int, cfg):
+    """Causal training attention: the plain, differentiable blockwise
+    function (the JAX package's ``_blockwise_traced_window``)."""
+    return L.blockwise_attention(q, k, v, causal=True, window=window,
+                                 softcap=cfg.attn_softcap,
+                                 block_q=cfg.attn_block_q,
+                                 block_kv=cfg.attn_block_kv)
+
+
 # --------------------------------------------------------------------------
-# one transformer layer (prefill / decode)
+# one transformer layer (train / prefill / decode)
 # --------------------------------------------------------------------------
 
 def _layer(p, x, window: int, cfg, positions, mode, kv_cache=None,
            lengths=None):
-    """Returns (x_out, (k, v)). Prefill returns this layer's k, v; decode
-    writes the new position into ``kv_cache`` (in place) at ``lengths``
-    and returns the cache."""
+    """Returns (x_out, aux, cache): ``aux`` is an MoE layer's router aux
+    loss (None for a dense one). Prefill returns this layer's k, v as
+    its cache; decode writes the new position into ``kv_cache`` (in place)
+    at ``lengths`` and returns the cache; train returns none."""
     cdt = L.dt(cfg.compute_dtype)
     xn = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = _qkv(p, xn, cfg, positions)
-    if mode == "decode":
+    if mode == "train":
+        new_cache = None
+        attn = _train_attention(q, k, v, window, cfg)
+    elif mode == "decode":
         # x: (B, 1, d); kv_cache: (k, v) each (B, S, KVH, D); lengths: (B,)
         k_cache, v_cache = kv_cache
         bidx = torch.arange(x.shape[0], device=x.device)
@@ -176,13 +197,14 @@ def _layer(p, x, window: int, cfg, positions, mode, kv_cache=None,
     x = x + attn_out
 
     xn2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    aux = None
     if cfg.moe:
-        ff, _ = moe_ffn(p["ffn"], xn2, cfg, cdt)
+        ff, aux = moe_ffn(p["ffn"], xn2, cfg, cdt)
     else:
         ff = L.swiglu(p["ffn"], xn2, cdt).to(x.dtype)
     if cfg.sandwich_norm:
         ff = L.rmsnorm(p["ln2_post"], ff, cfg.norm_eps)
-    return x + ff, new_cache
+    return x + ff, aux, new_cache
 
 
 # --------------------------------------------------------------------------
@@ -217,6 +239,39 @@ def _logits(params, x, cfg):
     return logits
 
 
+def _train_layer(p, x, window: int, cfg, positions):
+    x, aux, _ = _layer(p, x, window, cfg, positions, "train")
+    return x, aux
+
+
+def forward_train(params, batch, cfg, *, mesh=None):
+    """The training loss. batch: tokens (B, S) int, targets (B, S) int,
+    mask (B, S) f32, optional patches (B, P, patch_dim). Returns (loss,
+    {"nll", "aux", "tokens"}): the masked mean next-token NLL of the
+    head's f32 logits, plus the MoE layers' router aux losses, and the
+    mask's weight. Each layer is recomputed in the backward where
+    ``cfg.remat`` and autograd records."""
+    _unsupported(mesh)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = embed_inputs(params, tokens, cfg, batch.get("patches"))
+    positions = torch.arange(S, device=x.device)[None, :]
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, window in enumerate(layer_windows(cfg)):
+        args = (layer_params(params, i), x, window, cfg, positions)
+        x, a = (checkpoint(_train_layer, *args, use_reentrant=False)
+                if remat else _train_layer(*args))
+        if a is not None:
+            aux = aux + a
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    loss_sum, weight = L.chunked_softmax_xent(
+        x, head, batch["targets"], batch["mask"], softcap=cfg.final_softcap)
+    nll = loss_sum / torch.clamp(weight, min=1.0)
+    return nll + aux, {"nll": nll, "aux": aux, "tokens": weight}
+
+
 def prefill(params, tokens, cfg, *, pad_to=None, mesh=None, patches=None):
     """Run the prompt (B, S) and build the KV cache. Returns (caches,
     last_logits (B, V) f32): caches (k, v) stacked over layers,
@@ -232,8 +287,8 @@ def prefill(params, tokens, cfg, *, pad_to=None, mesh=None, patches=None):
     k_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
     v_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
     for i, window in enumerate(layer_windows(cfg)):
-        x, (k, v) = _layer(layer_params(params, i), x, window, cfg,
-                           positions, "prefill")
+        x, _, (k, v) = _layer(layer_params(params, i), x, window, cfg,
+                              positions, "prefill")
         k_all[i, :, :S] = k
         v_all[i, :, :S] = v
     x = L.rmsnorm(params["final_norm"], x[:, -1], cfg.norm_eps)
@@ -249,8 +304,8 @@ def decode_step(params, caches, lengths, last_tokens, cfg, *, mesh=None):
     positions = lengths[:, None]
     k_all, v_all = caches
     for i, window in enumerate(layer_windows(cfg)):
-        x, _ = _layer(layer_params(params, i), x, window, cfg, positions,
-                      "decode", kv_cache=(k_all[i], v_all[i]),
-                      lengths=lengths)
+        x, _, _ = _layer(layer_params(params, i), x, window, cfg,
+                         positions, "decode", kv_cache=(k_all[i], v_all[i]),
+                         lengths=lengths)
     x = L.rmsnorm(params["final_norm"], x[:, 0], cfg.norm_eps)
     return caches, _logits(params, x, cfg)

@@ -16,7 +16,11 @@ it, each gate's comparisons, the deleted-doc and result-cache checks,
 the live segments' file bytes, the fleet's deletes) pass on sound inputs
 and fail on a planted fault each; launch counting and ``ShapeRecorder``
 count exactly from 8 threads at once; the ``[fleet]`` phase runs whole
-on the CPU with two replica processes."""
+on the CPU with two replica processes. ``[train]``'s gates
+(``train_gates``) and ``[train-checks]``' update rule (``update_gate``)
+pass on sound inputs and fail on planted faults, a torn save is seen
+only without ``save_async``'s host copy, and both phases run whole on
+the CPU at SMOKE width."""
 import dataclasses
 import importlib.util
 import sys
@@ -813,3 +817,119 @@ def test_live_file_bytes_equal_the_reports_encoded_bytes(chip_smoke,
     victim = next(p for p in tmp_path.iterdir() if p.suffix == ".pst")
     victim.write_bytes(victim.read_bytes() + b"x")
     assert chip_smoke._live_file_bytes(tmp_path) == got + 1
+
+
+# --------------------------------------------------------------------------
+# [train] and [train-checks]
+# --------------------------------------------------------------------------
+
+def test_train_gates_pass(chip_smoke):
+    chip_smoke.train_gates("train", [12.5, 11.0, 12.6, 10.2],
+                           [3.0, 2.0, 1.5, 1.1])
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("rose", "did not fall"), ("flat", "did not fall"),
+    ("nan_loss", "not finite"), ("inf_norm", "not finite"),
+    ("empty", "not finite")])
+def test_train_gates_fail_on_a_planted_fault(chip_smoke, fault, match):
+    losses, norms = [12.5, 11.0, 10.2], [3.0, 2.0, 1.5]
+    if fault == "rose":
+        losses[-1] = 12.6
+    elif fault == "flat":
+        losses[-1] = losses[0]
+    elif fault == "nan_loss":
+        losses[1] = float("nan")
+    elif fault == "inf_norm":
+        norms[2] = float("inf")
+    else:
+        losses, norms = [], []
+    with pytest.raises(AssertionError, match=r"\[train\] gates: .*" + match):
+        chip_smoke.train_gates("train", losses, norms)
+
+
+def _updates(n=1000, lr=3e-4, steps=2):
+    g = torch.Generator().manual_seed(0)
+    before = [torch.randn(n, generator=g)]
+    step = torch.where(torch.rand(n, generator=g) < 0.5, -1.0, 1.0)
+    want = [before[0] + lr * steps * step]
+    return before, want, step
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_update_gate_passes_within_its_limits(chip_smoke, dtype):
+    before, want, step = _updates()
+    got = [want[0] + 1e-9]
+    out = chip_smoke.update_readings(got, want, before)
+    chip_smoke.update_gate(out, dtype, 2, 3e-4)
+    assert out["share_off"] == 0.0 and out["update_rms_ratio"] < 1e-3
+    if dtype == "bfloat16":  # a few gradients within rounding of 0
+        got = [want[0].clone()]
+        got[0][:5] -= 2 * 3e-4 * 2 * step[:5]
+        chip_smoke.update_gate(chip_smoke.update_readings(got, want, before),
+                               dtype, 2, 3e-4)
+
+
+@pytest.mark.parametrize("dtype,fault", [
+    ("float32", "one_flip"), ("bfloat16", "many_flips"),
+    ("bfloat16", "past_the_cards_share"),
+    ("float32", "too_far"), ("bfloat16", "too_far"),
+    ("bfloat16", "sign_flipped")])
+def test_update_gate_fails_on_a_planted_fault(chip_smoke, dtype, fault):
+    before, want, step = _updates()
+    got = [want[0].clone()]
+    if fault == "one_flip":
+        got[0][0] -= 2 * 3e-4 * 2 * step[0]
+    elif fault == "many_flips":
+        got[0][:30] -= 2 * 3e-4 * 2 * step[:30]
+    elif fault == "past_the_cards_share":
+        got[0][:101] -= 2 * 3e-4 * 2 * step[:101]
+    elif fault == "too_far":
+        got[0][7] += 1.3 * 4 * 3e-4
+    else:
+        got = [before[0] - (want[0] - before[0])]
+    flips = chip_smoke.TRAIN_SMOKE_FLIPS if fault == "past_the_cards_share" \
+        else chip_smoke.STEP_FLIPS
+    with pytest.raises(AssertionError, match="update differs"):
+        chip_smoke.update_gate(chip_smoke.update_readings(got, want, before),
+                               dtype, 2, 3e-4, flips=flips)
+
+
+def test_torn_save_is_seen_only_without_the_host_copy(chip_smoke, tmp_path):
+    cpu = torch.device("cpu")
+    assert not chip_smoke.torn_save_caught(cpu, tmp_path / "a", fault=False)
+    assert chip_smoke.torn_save_caught(cpu, tmp_path / "b", fault=True)
+
+
+def test_phase_train_rehearsed_on_the_cpu(chip_smoke, tmp_path, request):
+    """[train] and [train-checks] whole on the CPU at SMOKE width:
+    stablelm SMOKE, 6 steps of 2 x 64 tokens through ``launch.train``'s
+    loop (at lr 3e-3: at this width lr 3e-4 moves the loss less than one
+    batch differs from the next), the sign-flipped run caught, the
+    gradient check's sound reading within its limit and both planted
+    faults above it; then every check of [train-checks] (the card is the
+    CPU here). No kernel launches."""
+    from repro_torch.configs.registry import get_arch
+    cpu = torch.device("cpu")
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    request.addfinalizer(lambda: torch.set_num_threads(prev))
+    _build.reset_launches()
+    rep = chip_smoke.phase_train(
+        cpu, "cpu", get_arch("stablelm-12b").smoke,
+        ["--steps", "6", "--batch", "2", "--seq", "64", "--lr", "3e-3",
+         "--log-every", "1"], grad_layers=2, grad_seq=64)
+    assert rep["flipped_caught"] and len(rep["losses"]) == 6
+    assert rep["flipped_losses"][-1] > rep["flipped_losses"][0]
+    assert rep["peak_gb"] is None and rep["tokens_per_step"] == 128
+    chk = rep["grad_check"]
+    assert chk["sound"] <= chk["limit"] == chip_smoke.TRAIN_GRAD_LIMIT
+    assert min(chk["causal_mask_dropped"], chk["rope_q_plus_1"]) \
+        > chk["limit"]
+    out = chip_smoke.phase_train_checks(cpu, tmp_path)
+    assert set(out) == {f"{a}/{d}" for a in chip_smoke.TRAIN_SMOKE_ARCHS
+                        for d in ("float32", "bfloat16")} | {
+        "microbatch_4_vs_1", "resume_at_3_vs_whole", "torn_save"}
+    assert out["resume_at_3_vs_whole"]["start"] == 3
+    assert out["torn_save"] == {"sound": False, "host_copy_removed": True}
+    assert not any(_build.LAUNCHES.values())
